@@ -1,4 +1,4 @@
-"""ray_tracer_fragment_shader_tpu — a TPU-native differentiable ray tracer.
+"""ray_tracer_fragment_shader_tpu — a differentiable ray tracer in JAX/Pallas.
 
 A from-scratch JAX/Pallas framework with the capabilities of the reference
 C++/SDL ray tracer (D4rkFr4g/Ray_Tracer_Fragment_Shader): see SURVEY.md for

@@ -1,4 +1,4 @@
-"""Command-line interface — the TPU-native replacement for the reference's
+"""Command-line interface — the replacement for the reference's
 SDL app shell and stdin scene menu.
 
 The reference's user surface was: an interactive stdin loop asking for
@@ -91,7 +91,7 @@ def cmd_render(args):
         # Progressive preview: re-render at growing resolution, rewriting
         # --out after each pass — the closest headless analogue of the
         # reference's live repaint loop (MySdlApplication.cpp:1631-1659,
-        # deviation D6: a TPU pod has no display).  The camera's
+        # deviation D6: a headless accelerator host has no display).  The camera's
         # pixel_scale is widened at each preview level so every pass
         # covers the SAME world rectangle (the reference couples FOV to
         # resolution at 1 unit/pixel).

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native differentiable ray tracer.
+"""Typed configuration for the differentiable ray tracer.
 
 The reference has no config system: every knob is a compile-time constant in
 ``Hw4/MySdlApplication.cpp:16-52`` (window 500x500, MAX_DEPTH=5,
@@ -126,22 +126,9 @@ class RenderConfig:
     #: [rays, primitives] intersection matrices).  Must divide nothing in
     #: particular; the renderer pads.
     chunk_size: int = 65536
-    #: Computation dtype.  float32 is the TPU-native choice; the reference
-    #: uses float64 on CPU.
+    #: Computation dtype.  float32 is the accelerator's choice; the
+    #: reference uses float64 on CPU.
     dtype: str = "float32"
-    #: OPT-IN split-precision mode for the Pallas kernels: shadow sweeps and
-    #: the Phong shading blend run in bfloat16 (2-per-lane on the v5e VPU,
-    #: measured 2.41x on the kernels' op mix even with the mandatory f32
-    #: upcasts for compares/rsqrt — PERF.md section 7), while primary-ray
-    #: intersection, normals and all epsilon tests stay float32.  LOOSER
-    #: PARITY than the default: shading values drift up to ~1e-2 and a
-    #: small fraction of shadow-boundary pixels can flip lit/unlit (the
-    #: f64-oracle bars in tests/ apply to the default f32 path only; see
-    #: tests/test_bf16_shading.py for this mode's bars).  Gradients via the
-    #: fit paths replay shading in f32 against the bf16 forward's recorded
-    #: topology — exact for the recorded topology, within bf16 shading
-    #: drift of the rendered loss.  XLA core renderers ignore the flag.
-    bf16_shading: bool = False
 
     def resolved_mode(self, chain_exact: bool) -> str:
         if self.mode == "auto":

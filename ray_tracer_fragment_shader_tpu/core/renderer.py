@@ -4,7 +4,7 @@ and the autodiff baseline).
 The reference's recursive ``rayTraceRay`` (Hw4/MySdlApplication.cpp:1184-1249)
 branches into at most two child rays per hit: a transmitted ray weighted by
 the material transparency T and a reflected ray weighted by the opacity 1-T.
-Two TPU-friendly realisations:
+Two accelerator-friendly (branchless, batched) realisations:
 
 * ``chain``: an iterative ``lax.scan`` over bounce levels carrying a single
   ray + throughput per pixel.  Exact whenever every material traces at most
@@ -160,7 +160,14 @@ def render_pixels(scene: FlatScene, camera: Camera, width: int, height: int,
     sample and no ``force_jitter`` the ray goes through the exact screen
     point (the reference's jitter exists only for its supersampler,
     MySdlApplication.cpp:1294-1311)."""
-    pts = screen_points(camera, width, height, ij=ij)
+    return render_points(scene, camera, screen_points(camera, width, height,
+                                                      ij=ij), config, key)
+
+
+def render_points(scene: FlatScene, camera: Camera, pts, config: RenderConfig,
+                  key=None):
+    """Render through given screen points [P,3] -> [P,3] (``render_pixels``
+    after its screen-point step)."""
     P = pts.shape[0]
     mode = config.resolved_mode(scene.chain_exact)
     trace = functools.partial(

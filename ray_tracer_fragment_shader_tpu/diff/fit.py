@@ -10,12 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
@@ -25,9 +24,10 @@ from ..ops.rays import Camera, screen_points
 from ..parallel.mesh import TILE_AXIS, make_mesh
 from ..parallel.shard import _pixel_index_arrays, band_rows, band_split
 from ..scene.flat import FlatScene
+from ..utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class FitParams:
     """The differentiable subset of the scene (BASELINE: sphere geometry +
     light positions; material color tables included for generality)."""
@@ -88,41 +88,25 @@ def make_fit_step(scene: FlatScene, camera: Camera, config: RenderConfig,
 def make_fit_step_pallas(scene: FlatScene, camera: Camera,
                          config: RenderConfig, target,
                          optimizer: optax.GradientTransformation,
-                         block_h: int = None, block_w: int = None,
                          interpret: Optional[bool] = None):
-    """Single-device jitted Adam step on the fused Pallas path
-    (single-dispatch forward + L2 loss + in-kernel adjoint).
+    """Single-device jitted Adam step on the Pallas path
+    (``kernels/adjoint_fused.py::fit_value_and_grad``).
 
-    The step-invariant padded input planes — primary-ray directions,
-    target RGB, pixel mask — are prepared ONCE here
-    (``kernels/adjoint_fused.py::prepare_fit_inputs``) and reused every
-    step; XLA does not hoist them out of a training-loop body on its own.
-    This is the code path the headline bench times: users running a fit
-    loop get the same prepared-input configuration."""
-    import os
-
+    For single-sample chain scenes the step-invariant padded input planes —
+    primary-ray directions, target RGB, pixel mask — are prepared ONCE here
+    (``prepare_fit_inputs``) and reused every step; XLA does not hoist them
+    out of a training-loop body on its own."""
     from ..kernels.adjoint_fused import (fit_value_and_grad,
                                          prepare_fit_inputs)
-    from ..kernels.render_pallas import _resolve_blocks, compact_scene
-    # resolve for the phase this step will actually run: twophase's prep
-    # block is its PHASE-1 (forward) block; tree scenes and
-    # RTFS_FIT_MODE=fused take the fused kernel's (entity-count-aware)
-    # default instead
-    twophase = (scene.chain_exact
-                and os.environ.get("RTFS_FIT_MODE",
-                                   "twophase") == "twophase")
-    block_h, block_w = _resolve_blocks(
-        compact_scene(scene), block_h, block_w,
-        phase="fwd" if twophase else "fused", depth=config.max_depth)
     target = jnp.asarray(target, jnp.float32)
-    prep = prepare_fit_inputs(camera, config, target,
-                              block_h=block_h, block_w=block_w)
+    prep = None
+    if scene.chain_exact and not (config.samples > 1 or config.force_jitter):
+        prep = prepare_fit_inputs(camera, config, target)
 
     @jax.jit
     def step(params: FitParams, opt_state):
         loss, grads = fit_value_and_grad(
-            params, scene, camera, config, target,
-            block_h=block_h, block_w=block_w, interpret=interpret,
+            params, scene, camera, config, target, interpret=interpret,
             prep=prep)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
@@ -137,7 +121,7 @@ def make_sharded_fit_step(scene: FlatScene, camera: Camera,
                           mesh: Optional[Mesh] = None, axis: str = TILE_AXIS):
     """Multi-chip training step: pixel tiles sharded over the mesh,
     parameters replicated, the globally-normalized loss/gradients psum'd
-    over ICI (each shard divides by the global pixel count, so the psum is
+    across the mesh (each shard divides by the global pixel count, so the psum is
     exact — no pmean of unequal shard weights), Adam applied identically on
     every device (SPMD).
 
@@ -189,41 +173,27 @@ def make_sharded_fit_step_pallas(scene: FlatScene, camera: Camera,
                                  optimizer: optax.GradientTransformation,
                                  mesh: Optional[Mesh] = None,
                                  axis: str = TILE_AXIS,
-                                 block_h: int = None, block_w: int = None,
                                  interpret: Optional[bool] = None):
-    """Multi-chip training step on the FAST path (VERDICT r1 item 1): each
-    device renders its contiguous row band of the image with the fused
-    Pallas forward (+ fixed-topology residuals), differentiates it with the
-    fully in-kernel adjoint, and the ``FitParams`` gradients are all-reduced
-    with one ``psum`` over ICI (overlapped with backward tile compute by
-    XLA).  No naive autodiff anywhere.
+    """Multi-device training step on the kernel path: each device renders
+    its contiguous row band of the image with the packed two-phase kernels
+    (forward + in-kernel L2 cotangent + replay adjoint), and the
+    ``FitParams`` gradients are all-reduced with one ``psum``.  No naive
+    autodiff anywhere.  Chain-exact single-sample scenes only;
+    fractional-transparency scenes take ``make_sharded_fit_step``.
 
     ``target_img``: [H, W, 3] target.  Returns ``(step, target_padded)``
     where ``step(params, opt_state, target_padded) -> (params, opt_state,
     loss)`` and ``target_padded`` is row-padded to the mesh size (shard it
     with ``P(axis)`` placement or pass as-is under jit).
 
-    Matches ``fit_value_and_grad`` (kernels/adjoint_fused.py) exactly up to
-    float reassociation of the per-tile gradient accumulation order, and
-    follows the same kernel-shape default: packed two-phase for chain-exact
-    scenes (env ``RTFS_FIT_MODE``), fused single-dispatch for tree scenes.
-    """
-    import os
-
-    from ..kernels.adjoint_fused import (fused_loss_grads_pallas,
-                                         grads_to_fitparams,
+    Matches ``fit_value_and_grad`` (kernels/adjoint_fused.py) up to float
+    reassociation of the per-block gradient sums."""
+    from ..kernels.adjoint_fused import (grads_to_fitparams,
                                          twophase_loss_grads_pallas)
-    from ..kernels.render_pallas import _resolve_blocks, compact_scene
-    use_twophase = (scene.chain_exact
-                    and os.environ.get("RTFS_FIT_MODE",
-                                       "twophase") == "twophase")
-    # twophase's per-band block is its phase-1 (forward) block; the fused
-    # kernel takes its own entity-count-aware default
-    block_h, block_w = _resolve_blocks(
-        compact_scene(scene), block_h, block_w,
-        phase="fwd" if use_twophase else "fused", depth=config.max_depth)
-    loss_grads = (twophase_loss_grads_pallas if use_twophase
-                  else fused_loss_grads_pallas)
+    if not scene.chain_exact:
+        raise ValueError("the sharded kernel step replays the bounce chain; "
+                         "fractional-transparency scenes take "
+                         "make_sharded_fit_step")
 
     mesh = make_mesh() if mesh is None else mesh
     n = mesh.devices.size
@@ -246,13 +216,12 @@ def make_sharded_fit_step_pallas(scene: FlatScene, camera: Camera,
         # rows >= h are mesh padding: mask their loss/cotangent to zero
         row_valid = (jj < h).reshape(h_shard, w).astype(jnp.float32)
         scene_full = params.into_scene(scene)
-        # one or two kernels per band (twophase default): forward + L2
+        # two kernels per band: forward + packed residuals, then L2
         # cotangent + replay adjoint; only the band's gradient tables
-        # leave the chip, psum'd over ICI
-        sq_sum, grads_c = loss_grads(
+        # leave the device, psum'd across the mesh
+        sq_sum, grads_c = twophase_loss_grads_pallas(
             scene_full, camera, cfg_s, tgt_rows, mask=row_valid,
-            denom=denom, block_h=block_h, block_w=block_w,
-            interpret=interpret, pts=pts)
+            denom=denom, interpret=interpret, pts=pts)
         loss = jax.lax.psum(sq_sum, axis) / denom
         grads = grads_to_fitparams(params, scene_full, grads_c)
         grads = jax.lax.psum(grads, axis)

@@ -11,6 +11,9 @@ unclamped like the reference (GL clamps at rasterization); writers clamp to
 """
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -93,15 +96,53 @@ def read_ppm(path: str) -> np.ndarray:
     return data.reshape(h, w, 3)
 
 
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
 def write_png(path: str, img) -> None:
-    """PNG via PIL when available, else fall back to PPM next to it."""
+    """8-bit RGB PNG, written with the standard library (zlib + struct)."""
     raster = to_uint8(img)
-    try:
-        from PIL import Image
-    except ImportError:  # pragma: no cover
-        write_ppm(path.rsplit(".", 1)[0] + ".ppm", img)
-        return
-    Image.fromarray(raster).save(path)
+    h, w, _ = raster.shape
+    # every scanline is prefixed by filter type 0 (None)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           raster.reshape(h, w * 3)], 1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read back a PNG as written by ``write_png`` (8-bit RGB,
+    non-interlaced, every scanline unfiltered) -> top-down uint8 [H,W,3].
+    Other PNG variants raise ValueError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or header[2:] != (8, 2, 0, 0, 0):
+        raise ValueError(f"unsupported PNG header {header}")
+    w, h = header[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
+                         np.uint8).reshape(h, 1 + w * 3)
+    if rows[:, 0].any():
+        raise ValueError("unsupported PNG scanline filter")
+    return rows[:, 1:].reshape(h, w, 3).copy()
 
 
 def write_image(path: str, img) -> None:

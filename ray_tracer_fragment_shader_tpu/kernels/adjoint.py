@@ -50,8 +50,7 @@ def _node_math(scene: FlatScene, tri_n, tri_nv0, o, v, bik, midl, lits,
     ``lits``: [L,P] lit flags.  Returns a dict with the local shading color
     (lit/attenuation included, throughput NOT included), the hit point,
     secondary directions, material transparency, and the pinned branch
-    flags.  Shared by the chain replay (level-indexed residuals) and the
-    tree replay (preorder-node residuals)."""
+    flags."""
     nt = scene.num_triangles
     dtype = jnp.float32
     hitm = bik >= 0.0
@@ -136,13 +135,15 @@ def _node_math(scene: FlatScene, tri_n, tri_nv0, o, v, bik, midl, lits,
 
 
 def replay_render(scene: FlatScene, camera: Camera, config: RenderConfig,
-                  residuals: Dict[str, Any]):
+                  residuals: Dict[str, Any], pts=None):
     """Differentiable radiance replay of the bounce *chain* -> [H,W,3].
 
     ``residuals``: bi [D+1,H,W] (hit primitive id in [tris, spheres]
     ordering, -1 = miss), mid [D+1,H,W] (resolved material id, checker
     already applied), lit [L,D+1,H,W] (shadow flags).  Must come from the
-    same (compacted) scene the Pallas forward used.
+    same (compacted) scene the Pallas forward used.  ``pts``: the screen
+    points [H*W, 3] the forward used (default: the camera's own; jittered
+    samples pass theirs).
     """
     scene = compact_scene(scene)
     w, h = config.width, config.height
@@ -154,7 +155,8 @@ def replay_render(scene: FlatScene, camera: Camera, config: RenderConfig,
     tri_n = der["n"]                                   # [Nt,3]
     tri_nv0 = jnp.sum(tri_n * scene.tri_v0, -1)        # [Nt]
 
-    pts = screen_points(camera, w, h)
+    if pts is None:
+        pts = screen_points(camera, w, h)
     o, v = primary_rays(camera, pts)                   # [P,3]
     P = o.shape[0]
 
@@ -180,74 +182,27 @@ def replay_render(scene: FlatScene, camera: Camera, config: RenderConfig,
     return color.reshape(h, w, 3)
 
 
-def replay_render_tree(scene: FlatScene, camera: Camera, config: RenderConfig,
-                       residuals: Dict[str, Any]):
-    """Differentiable radiance replay of the full bounce *tree* -> [H,W,3]
-    (fractional-transparency scenes — the literal ``rayTraceRay`` recursion,
-    MySdlApplication.cpp:1230-1248).
-
-    ``residuals``: bi/mid [K,H,W] and lit [L,K,H,W] with K = 2^(depth+1)-1
-    preorder tree nodes, as emitted by the tree kernel's residual forward
-    (transmitted subtree before reflected subtree, matching the kernel's
-    static unroll order)."""
-    from .render_pallas import n_tree_nodes
-
-    scene = compact_scene(scene)
-    w, h = config.width, config.height
-    depth = config.max_depth
-    K = n_tree_nodes(depth)
-
-    der = tri_derived(scene.tri_v0, scene.tri_v1, scene.tri_v2,
-                      config.small_number)
-    tri_n = der["n"]
-    tri_nv0 = jnp.sum(tri_n * scene.tri_v0, -1)
-
-    pts = screen_points(camera, w, h)
-    o0, v0 = primary_rays(camera, pts)
-    P = o0.shape[0]
-
-    bi = residuals["bi"].reshape(K, P)
-    mid = residuals["mid"].reshape(K, P)
-    lit = residuals["lit"].reshape(scene.num_lights, K, P)
-
-    counter = [0]
-
-    def node(o, v, level):
-        idx = counter[0]
-        counter[0] += 1
-        nm = _node_math(scene, tri_n, tri_nv0, o, v, bi[idx], mid[idx],
-                        lit[:, idx], config)
-        color = nm["local"]
-        if level < depth:
-            take_t = nm["take_t"][:, None]
-            refl_ok = nm["refl_ok"][:, None]
-            ct = node(nm["p"], jnp.where(take_t, nm["trans"], 0.0), level + 1)
-            cr = node(nm["p"], jnp.where(refl_ok, nm["refl"], 0.0), level + 1)
-            color = color + jnp.where(take_t, nm["trn"] * ct, 0.0)
-            color = color + jnp.where(refl_ok, (1.0 - nm["trn"]) * cr, 0.0)
-        return jnp.where(nm["hitm"][:, None], color, jnp.zeros_like(color))
-
-    return node(o0, v0, 0).reshape(h, w, 3)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def render_image_diff(scene: FlatScene, camera: Camera, config: RenderConfig):
-    """Differentiable Pallas render: forward = fused kernel, backward =
-    fixed-topology replay VJP."""
-    img, _ = render_forward_with_residuals(scene, camera, config)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
+def render_image_diff(scene: FlatScene, camera: Camera, config: RenderConfig,
+                      interpret=None):
+    """Differentiable Pallas render of a chain-exact scene: forward = the
+    kernel, backward = fixed-topology replay VJP.  ``interpret`` as in
+    ``render_pallas.use_interpret``."""
+    img, _ = render_forward_with_residuals(scene, camera, config,
+                                           interpret=interpret)
     return img
 
 
-def _diff_fwd(scene, camera, config):
-    img, res = render_forward_with_residuals(scene, camera, config)
+def _diff_fwd(scene, camera, config, interpret):
+    img, res = render_forward_with_residuals(scene, camera, config,
+                                             interpret=interpret)
     return img, (scene, camera, res)
 
 
-def _diff_bwd(config, saved, g):
+def _diff_bwd(config, interpret, saved, g):
     scene, camera, res = saved
-    replay = replay_render if scene.chain_exact else replay_render_tree
     _, vjp = jax.vjp(
-        lambda s, c: replay(s, c, config, res), scene, camera)
+        lambda s, c: replay_render(s, c, config, res), scene, camera)
     return vjp(g)
 
 
@@ -255,8 +210,13 @@ render_image_diff.defvjp(_diff_fwd, _diff_bwd)
 
 
 def l2_loss_pallas(params, scene: FlatScene, camera: Camera,
-                   config: RenderConfig, target):
+                   config: RenderConfig, target, interpret=None):
     """Drop-in replacement for diff.fit.l2_loss using the Pallas forward and
-    the replay adjoint."""
-    img = render_image_diff(params.into_scene(scene), camera, config)
+    the replay adjoint.  Fractional-transparency scenes (the bounce tree)
+    take ``diff.fit.l2_loss`` itself."""
+    if not scene.chain_exact:
+        from ..diff.fit import l2_loss
+        return l2_loss(params, scene, camera, config, target)
+    img = render_image_diff(params.into_scene(scene), camera, config,
+                            interpret)
     return jnp.mean((img - target) ** 2)

@@ -1,23 +1,34 @@
-"""Fully in-kernel backward pass: the replay adjoint as a fused Pallas kernel.
+"""Fully in-kernel backward pass: the replay adjoint as Pallas kernels
+(Triton route).
 
 ``kernels/adjoint.py`` pins the discrete hit topology with per-level residuals
 and re-derives the radiance as a small differentiable function — but it runs
 that replay (and its VJP) as an XLA program over the whole image, which
-materializes [P, N] one-hot selection masks in HBM and roughly matches the
-forward kernel's cost.  This module moves the entire backward into one Pallas
-kernel: each grid step replays the bounce chain for a (BH, BW) pixel tile in
-VMEM, differentiates it on the spot with a HAND-WRITTEN adjoint (a lean
-primal sweep plus an explicit reverse sweep — no ``jax.vjp``; every
-sqrt/divide adjoint reuses a primal reciprocal and the color accumulation is
-skipped), and accumulates the per-tile parameter gradients into small VMEM
-tables across the sequential TPU grid.  No [P, N] buffer ever exists; HBM
-traffic is just the residuals + cotangent.
+materializes [P, N] one-hot selection masks in device memory.  Here each
+program replays the bounce chain for one block of pixels in registers and
+differentiates it on the spot with a HAND-WRITTEN adjoint (a lean primal
+sweep plus an explicit reverse sweep — no ``jax.vjp``; every sqrt/divide
+adjoint reuses a primal reciprocal and the colour accumulation is skipped).
+Each program writes its own partial sums of the parameter gradients (and of
+the loss) into its own row of a small table; XLA sums the rows after the
+call, so the reduction is deterministic and needs no atomics.  No [P, N]
+buffer ever exists; device-memory traffic is the residuals and cotangent.
+
+Two kernels, one backward per kind of chain fit:
+  * the packed two-phase backward (single-sample fits): phase 1 is the
+    forward kernel emitting one packed residual plane per bounce level
+    (``render_pallas.render_forward``), phase 2 forms the L2 cotangent and
+    loss in its prologue and runs the adjoint;
+  * the recompute backward (supersampled and adaptive fits): the forward
+    chain is re-traced into registers inside the backward kernel, with the
+    cotangent supplied from outside, one launch per sample.
 
 Scope: gradients w.r.t. the differentiable-fit parameter set (``FitParams``:
 sphere centers/radii, light positions, material ambient/diffuse/specular) —
 the BASELINE config-4 workload.  For gradients w.r.t. other leaves (camera,
-triangle vertices) use the XLA replay (``kernels/adjoint.py``), which remains
-the general path.
+triangle vertices) use the XLA replay (``kernels/adjoint.py``).
+Fractional-transparency scenes (the bounce tree) differentiate through the
+XLA tree renderer (``diff.fit.l2_loss``).
 
 Like the replay, gradients are defined through fixed hit topology
 (SURVEY.md §7 "Hard parts": hit/miss, checker parity and shadow edges carry
@@ -26,58 +37,73 @@ branch-heavy shading (Hw4/MySdlApplication.cpp:1184-1249).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-import os
 from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import RenderConfig
-from ..diff.fit import FitParams
-from ..ops.rays import Camera, primary_rays, screen_points
+from ..diff.fit import FitParams, l2_loss
+from ..ops.rays import Camera, sample_jitter, screen_points
 from ..scene.flat import FlatScene
-from ..utils import fastmath
-from .render_pallas import (_pad_img, _sweep_loop, compact_scene,
-                            kernel_compiler_params, pack_scene,
-                            render_forward_with_residuals)
+from . import render_pallas
+from .render_pallas import (PLANE_MULT, _chain_forward, _make_tile_ops,
+                            _sweep_loop, compact_scene, kernel_statics,
+                            pack_scene_for, pack_widths, pad_plane,
+                            plane_spec, ray_planes, render_forward, tables,
+                            triton_call, unpack_level, use_interpret, whole)
 
-# Diff-table layouts (rows = entity, cols = packed fields)
-SPHD_COLS = 8    # cx cy cz r - - - -
-MATD_COLS = 16   # amb(3) dif(3) spe(3) - - - - - - -
-LIGHTD_COLS = 8  # pos(3) - - - - -
+def grad_layout(ns: int, m: int, nl: int):
+    """Layout of one program's partial sums: ``[loss, sphere (cx cy cz r)
+    x ns, material (amb3 dif3 spe3) x m, light (pos3) x nl]``, padded to a
+    power of two (Triton stores power-of-two blocks).  Returns (number of
+    used slots, padded width)."""
+    used = 1 + 4 * ns + 9 * m + 3 * nl
+    width = 1
+    while width < used:
+        width *= 2
+    return used, width
 
 
-def _pack_diff_tables(scene: FlatScene):
-    """The differentiable parameter tables (VMEM inputs of the backward
-    kernel).  Scene must already be compacted."""
-    f32 = jnp.float32
-    ns, m, nl = scene.num_spheres, scene.num_materials, scene.num_lights
-    sphd = jnp.zeros((max(ns, 1), SPHD_COLS), f32)
-    sphd = sphd.at[:ns, 0:3].set(scene.sph_center.astype(f32))
-    sphd = sphd.at[:ns, 3].set(scene.sph_radius.astype(f32))
-    matd = jnp.zeros((max(m, 1), MATD_COLS), f32)
-    matd = matd.at[:m, 0:3].set(scene.mat_ambient.astype(f32))
-    matd = matd.at[:m, 3:6].set(scene.mat_diffuse.astype(f32))
-    matd = matd.at[:m, 6:9].set(scene.mat_specular.astype(f32))
-    lightd = jnp.zeros((max(nl, 1), LIGHTD_COLS), f32)
-    lightd = lightd.at[:nl, 0:3].set(scene.light_pos.astype(f32))
-    return sphd, matd, lightd
+def _partials_row(sums, width: int):
+    """Scalar partial sums -> one [width] row (zeros past the used slots)."""
+    idx = jax.lax.broadcasted_iota(jnp.int32, (width,), 0)
+    row = jnp.zeros((width,), jnp.float32)
+    for f, s in enumerate(sums):
+        row = jnp.where(idx == f, s, row)
+    return row
+
+
+def reduce_partials(partials, ns_k: int, m: int, nl: int, ns: int):
+    """Sum the programs' partial rows [G, width] and split the result into
+    (loss sum, compacted-scene gradient tables).  ``ns_k`` is the kernel's
+    sphere row count (at least 1), ``ns`` the scene's."""
+    tot = jnp.sum(partials, 0)
+    o = 1
+    sph = tot[o:o + 4 * ns_k].reshape(ns_k, 4)
+    o += 4 * ns_k
+    mat = tot[o:o + 9 * m].reshape(m, 9)
+    o += 9 * m
+    light = tot[o:o + 3 * nl].reshape(nl, 3)
+    return tot[0], dict(sph_center=sph[:ns, 0:3], sph_radius=sph[:ns, 3],
+                        mat_ambient=mat[:, 0:3], mat_diffuse=mat[:, 3:6],
+                        mat_specular=mat[:, 6:9], light_pos=light)
 
 
 def _node_reverse(c, rec, gath_n, d_gath_n, d_lp, lcol, G3, atten, nl,
                   inflow):
-    """Reverse sweep of ONE bounce node — the shared adjoint core of the
-    chain and tree tile bodies.  ``c``/``rec``: the node's constants and
+    """Reverse sweep of ONE bounce node of the chain adjoint.
+    ``c``/``rec``: the node's constants and
     primal record; ``gath_n``/``d_gath_n``: its 13 pre-gathered parameter
     planes and their cotangent accumulators (mutated in place, like
     ``d_lp``); ``G3``: the per-channel cotangent scale of this node's local
-    shading (chain: throughput x image cotangent; tree: path weight x image
-    cotangent); ``inflow``: dict of cotangents arriving from the node's
-    children — p (3), r (3), u (3), n (3), cosi — zeros where absent.
+    shading (throughput x image cotangent); ``inflow``: dict of cotangents
+    arriving from the node's child — p (3), r (3), u (3), n (3), cosi —
+    zeros where absent.
     Returns (o_b 3-tuple, v_b 3-tuple), the cotangents of the node's input
     ray.  Every masked select transposes to a masked cotangent; each
     guarded sqrt/div adjoint reuses the primal's reciprocal (self-masking:
@@ -272,21 +298,18 @@ def _masked_rsqrt(x, ok):
 
 
 def _node_primal(c, gath_n, lp, o, v, *, nl: int, atten: float,
-                 want_snell: bool, fast_recip: bool):
-    """Hand-written primal sweep of ONE bounce node — the shared forward
-    half of the chain and tree replay adjoints.  Mirrors
+                 want_snell: bool):
+    """Hand-written primal sweep of ONE bounce node — the forward half
+    of the chain replay adjoint.  Mirrors
     kernels/adjoint.py::_node_math value-for-value (same guards, 1-ulp
     rsqrt-vs-sqrt/div differences) but skips the color accumulation and
     keeps every intermediate the reverse sweep (``_node_reverse``)
     consumes.  ``want_snell``: also compute the transmitted direction and
-    its Snell record (non-leaf nodes of transmitting scenes).
+    its Snell record (non-last levels of transmitting scenes).
 
     Returns (rec, (px, py, pz), (rx, ry, rz), (tx, ty, tz) or None)."""
     ox, oy, oz = o
     vx, vy, vz = v
-
-    def _recip(x):
-        return fastmath.recip(x, fast_recip)
 
     hitm, is_tri = c["hitm"], c["is_tri"]
     cx, cy, cz, rr = gath_n[0:4]
@@ -298,7 +321,7 @@ def _node_primal(c, gath_n, lp, o, v, *, nl: int, atten: float,
     tnx, tny, tnz = c["tn"]
     ndv = tnx * vx + tny * vy + tnz * vz
     ndv_ok = jnp.abs(ndv) > 0.0
-    inv_ndv = _recip(jnp.where(ndv_ok, ndv, 1.0))
+    inv_ndv = 1.0 / jnp.where(ndv_ok, ndv, 1.0)
     ndo = tnx * ox + tny * oy + tnz * oz
     m_par = jnp.where(ndv_ok, (c["tnv0"] - ndo) * inv_ndv, 0.0)
     dist_tri = m_par * vlen
@@ -331,7 +354,7 @@ def _node_primal(c, gath_n, lp, o, v, *, nl: int, atten: float,
         svy = lp[li][1] - py
         svz = lp[li][2] - pz
         d2 = svx * svx + svy * svy + svz * svz
-        att = atten * _recip(atten + d2)      # atten + d2 >= atten > 0
+        att = atten * (1.0 / (atten + d2))   # atten + d2 >= atten > 0
         inv_sl, _ = _masked_rsqrt(d2, d2 > 0.0)
         dot_ns = nx * svx + ny * svy + nz * svz
         dot_ur = ux * rx + uy * ry + uz * rz
@@ -365,8 +388,7 @@ def _node_primal(c, gath_n, lp, o, v, *, nl: int, atten: float,
 def _snell_reverse(c, rec, t_b):
     """Adjoint of the transmitted direction t = (rho*u - coef*n) * mod_f
     given its cotangent 3-tuple ``t_b``.  Returns (u_b, n_b, cosi_b)
-    contributions.  Shared by the chain (select transpose) and tree (both
-    children) reverse sweeps."""
+    contributions (the transpose of the chain's child select)."""
     t_bx, t_by, t_bz = t_b
     rho = c["rho"]
     nx, ny, nz = rec["nx"], rec["ny"], rec["nz"]
@@ -384,37 +406,23 @@ def _snell_reverse(c, rec, t_b):
     return u_b, n_b, cosi_b
 
 
-def _adjoint_tile_body(tri_ref, mat_ref, light_ref,
-                       sphd_ref, matd_ref, lightd_ref,
+def _adjoint_tile_body(sph_ref, tri_ref, mat_ref, light_ref,
                        eye, vx0, vy0, vz0, bi_at, mid_at, lit_at,
                        gr, gg, gb,
                        *, ns: int, nt: int, m: int, nl: int, depth: int,
-                       atten: float, want_trans: bool, shape,
-                       fast_recip: bool = False, ov_at=None):
-    """The replay adjoint for one tile: given per-level residual accessors
-    (``bi_at(lv)``, ``mid_at(lv)``, ``lit_at(li, lv)`` -> [BH,BW] planes —
-    HBM-loaded refs in the two-phase backward kernel, VMEM scratch in the
-    fused fwd+bwd kernel) and the L2 cotangent planes, returns the per-tile
-    gradient tables (dsph, dmat, dlight).
-
-    ``ov_at(lv) -> 6 planes (ox oy oz vx vy vz)``: each level's input ray,
-    recorded by the forward into VMEM scratch (render_pallas::
-    _chain_forward's ov refs).  When given, the adjoint's own primal
-    ray-chain phase is skipped entirely — per-level records are re-derived
-    lazily inside the reverse loop from the recorded rays, which both
-    removes the duplicated chain arithmetic and shrinks the reverse
-    sweep's live set (the ~25-plane records exist one level at a time).
+                       atten: float, want_trans: bool, shape, **_):
+    """The replay adjoint for one pixel block: given per-level residual
+    accessors (``bi_at(lv)``, ``mid_at(lv)``, ``lit_at(li, lv)`` -> pixel
+    planes) and the L2 cotangent planes, returns the block's gradient sums
+    as a list of scalars in ``grad_layout`` order (without the loss slot).
 
     The adjoint is HAND-WRITTEN (no ``jax.vjp``): a lean primal sweep keeps
     exactly the intermediates the reverse needs, every
     sqrt/divide/reciprocal adjoint reuses an already-computed reciprocal
     (one ``rsqrt`` yields both sqrt(x) = x*rsqrt(x) and the 0.5*inv^3
-    adjoint factor), and the color accumulation — whose value the kernel
-    never needs — is skipped entirely.  Versus the traced ``jax.vjp`` of
-    the replay closure this cuts the backward per-level slot count ~2x
-    (exact counts derived from this function's own jaxpr:
-    utils/opcount.py::kernel_op_counts).  Gradients are defined through fixed hit
-    topology, identical to kernels/adjoint.py::replay_render's autodiff
+    adjoint factor), and the colour accumulation — whose value the kernel
+    never needs — is skipped entirely.  Gradients are defined through fixed
+    hit topology, identical to kernels/adjoint.py::replay_render's autodiff
     (parity asserted in tests/test_adjoint_fused.py)."""
     f32 = jnp.float32
 
@@ -422,8 +430,6 @@ def _adjoint_tile_body(tri_ref, mat_ref, light_ref,
         return jnp.full(shape, x, f32)
 
     # ---- per-level constants (fixed topology; no gradients flow here) ----
-    # Selected via SMEM fori_loop mask-blends exactly like the forward kernel,
-    # *outside* the differentiated closure so the VJP graph stays lean.
     consts = []
     for lv in range(depth + 1):
         bik = bi_at(lv)
@@ -471,7 +477,7 @@ def _adjoint_tile_body(tri_ref, mat_ref, light_ref,
                     tg * jnp.where(c["hitm"], wg, one),
                     tb * jnp.where(c["hitm"], wb, one)))
 
-    # Light colors (constant scalars from SMEM).
+    # Light colours (constant scalars).
     lcol = [(light_ref[li, 3], light_ref[li, 4], light_ref[li, 5])
             for li in range(nl)]
 
@@ -481,97 +487,65 @@ def _adjoint_tile_body(tri_ref, mat_ref, light_ref,
     mat_sel = [[consts[lv]["midl"] == float(j) for j in range(m)]
                for lv in range(depth + 1)]
 
-    # ---- pre-gathered differentiable planes (the vjp's primal inputs) ----
-    # The table->plane gather is linear; doing it OUTSIDE the differentiated
-    # closure keeps the vjp graph purely elementwise (no per-level parameter
-    # reductions interleaved with the adjoint arithmetic) and lets the
-    # gather transpose run as one batched block of masked reductions at the
-    # end — measured ~2x cheaper than vjp'ing through the gathers.
+    # ---- pre-gathered differentiable planes (sphere centre/radius and
+    # material ambient/diffuse/specular of each pixel's winner) ----
     gath = []
     for lv in range(depth + 1):
         cx, cy, cz, rr = full(0.0), full(0.0), full(0.0), full(0.0)
         for i in range(ns):
             sel = sph_sel[lv][i]
-            cx = jnp.where(sel, sphd_ref[i, 0], cx)
-            cy = jnp.where(sel, sphd_ref[i, 1], cy)
-            cz = jnp.where(sel, sphd_ref[i, 2], cz)
-            rr = jnp.where(sel, sphd_ref[i, 3], rr)
+            cx = jnp.where(sel, sph_ref[i, 0], cx)
+            cy = jnp.where(sel, sph_ref[i, 1], cy)
+            cz = jnp.where(sel, sph_ref[i, 2], cz)
+            rr = jnp.where(sel, sph_ref[i, 3], rr)
         fields = [full(0.0) for _ in range(9)]
         for j in range(m):
             sel = mat_sel[lv][j]
             for k in range(9):
-                fields[k] = jnp.where(sel, matd_ref[j, k], fields[k])
+                fields[k] = jnp.where(sel, mat_ref[j, k], fields[k])
         gath.append([cx, cy, cz, rr] + fields)
-    lp = [[full(lightd_ref[li, 0]), full(lightd_ref[li, 1]),
-           full(lightd_ref[li, 2])] for li in range(nl)]
+    lp = [[full(light_ref[li, 0]), full(light_ref[li, 1]),
+           full(light_ref[li, 2])] for li in range(nl)]
 
     # ---- hand-written primal sweep ----------------------------------------
     # Mirrors kernels/adjoint.py::replay_render value-for-value (the shared
-    # per-node helper _node_primal) but skips the color accumulation (never
-    # needed — the forward kernel produced the image) and keeps every
-    # intermediate the reverse sweep consumes.
-    #
-    # RTFS_BWD_RECOMPUTE=1 (trace-time knob): keep only each level's
-    # (o, v) ray — 6 planes/level instead of the ~25-plane primal record —
-    # and re-derive the record inside the reverse loop with one extra
-    # _node_primal per level.  Trades ~15% more backward arithmetic for a
-    # ~4x smaller live set across the reverse sweep (the fused kernel's
-    # register-pressure experiment; values are bit-identical — same
-    # inputs, same math).
-    recompute = os.environ.get("RTFS_BWD_RECOMPUTE", "0") == "1"
+    # per-node helper _node_primal) but skips the colour accumulation and
+    # keeps every intermediate the reverse sweep consumes.
     P = []
-    OV = []
-    if ov_at is None:
-        o = (full(eye[0]), full(eye[1]), full(eye[2]))
-        v = (vx0, vy0, vz0)
-        for lv in range(depth + 1):
-            c = consts[lv]
-            hitm = c["hitm"]
-            want_snell = lv < depth and want_trans
-            OV.append((o, v))
-            rec, p, r_dir, t_dir = _node_primal(
-                c, gath[lv], lp, o, v, nl=nl, atten=atten,
-                want_snell=want_snell, fast_recip=fast_recip)
-            if lv < depth:
-                if want_trans:
-                    take_t = c["take_t"]
-                    nv = tuple(jnp.where(take_t, t, r)
-                               for t, r in zip(t_dir, r_dir))
-                else:
-                    # no transmitting material (static): the chain always
-                    # reflects — bit-identical to the gated selects above
-                    nv = r_dir
-                v = tuple(jnp.where(hitm, nvi, 0.0) for nvi in nv)
-                o = p
-            P.append(None if recompute else rec)
+    o = (full(eye[0]), full(eye[1]), full(eye[2]))
+    v = (vx0, vy0, vz0)
+    for lv in range(depth + 1):
+        c = consts[lv]
+        hitm = c["hitm"]
+        want_snell = lv < depth and want_trans
+        rec, p, r_dir, t_dir = _node_primal(
+            c, gath[lv], lp, o, v, nl=nl, atten=atten,
+            want_snell=want_snell)
+        if lv < depth:
+            if want_trans:
+                take_t = c["take_t"]
+                nv = tuple(jnp.where(take_t, t, r)
+                           for t, r in zip(t_dir, r_dir))
+            else:
+                # no transmitting material (static): the chain always
+                # reflects — bit-identical to the gated selects above
+                nv = r_dir
+            v = tuple(jnp.where(hitm, nvi, 0.0) for nvi in nv)
+            o = p
+        P.append(rec)
 
     # ---- hand-written reverse sweep ---------------------------------------
     # Cotangents flow level depth -> 0; the per-node math lives in
-    # _node_reverse (shared with the tree adjoint).  Parameter cotangents
-    # land in d_gath[lv] (13 planes, same layout as gath) and d_lp; the
-    # gather transpose below is unchanged.
+    # _node_reverse.  Parameter cotangents land in d_gath[lv] (13 planes,
+    # same layout as gath) and d_lp.
     d_gath = [[full(0.0) for _ in range(13)] for _ in range(depth + 1)]
     d_lp = [[full(0.0) for _ in range(3)] for _ in range(nl)]
     pbx = pby = pbz = full(0.0)   # cotangent of p (= next level's o)
     vbx = vby = vbz = full(0.0)   # cotangent of next level's v input
     for lv in range(depth, -1, -1):
         c = consts[lv]
-        if ov_at is not None:
-            planes = ov_at(lv)
-            rec, _, _, _ = _node_primal(
-                c, gath[lv], lp, planes[0:3], planes[3:6], nl=nl,
-                atten=atten, want_snell=(lv < depth and want_trans),
-                fast_recip=fast_recip)
-        elif recompute:
-            o_lv, v_lv = OV[lv]
-            rec, _, _, _ = _node_primal(
-                c, gath[lv], lp, o_lv, v_lv, nl=nl, atten=atten,
-                want_snell=(lv < depth and want_trans),
-                fast_recip=fast_recip)
-        else:
-            rec = P[lv]
+        rec = P[lv]
         hitm = c["hitm"]
-        nx, ny, nz = rec["nx"], rec["ny"], rec["nz"]
 
         zero3 = (full(0.0), full(0.0), full(0.0))
         inflow = dict(p=(pbx, pby, pbz), u=zero3, n=zero3,
@@ -600,850 +574,230 @@ def _adjoint_tile_body(tri_ref, mat_ref, light_ref,
             c, rec, gath[lv], d_gath[lv], d_lp, lcol,
             (tr_ * gr, tg_ * gg, tb_ * gb), atten, nl, inflow)
 
-    # ---- gather transpose, hand-batched ----
-    # Level-summed masked cotangent planes (elementwise), then ONE reduction
-    # per (entity, field) extracted through the vjp of a linear projection —
-    # 51 contiguous tile reductions instead of ~200 interleaved ones.
-    def lvsum(idx, masks_per_lv):
+    # ---- gather transpose: level-summed masked cotangent planes, then one
+    # block reduction per (entity, field) ----
+    def lvsum(idx, sel_per_lv):
         acc = full(0.0)
         for lv in range(depth + 1):
-            acc = acc + masks_per_lv[lv] * d_gath[lv][idx]
-        return acc
+            acc = acc + jnp.where(sel_per_lv[lv], 1.0, 0.0) * d_gath[lv][idx]
+        return jnp.sum(acc)
 
-    sph_m = [[jnp.where(sph_sel[lv][i], 1.0, 0.0) for lv in range(depth + 1)]
-             for i in range(ns)]
-    mat_m = [[jnp.where(mat_sel[lv][j], 1.0, 0.0) for lv in range(depth + 1)]
-             for j in range(m)]
-    P_sph = [[lvsum(k, sph_m[i]) for k in range(4)] for i in range(ns)]
-    P_mat = [[lvsum(4 + k, mat_m[j]) for k in range(9)] for j in range(m)]
-
-    def project(sphd, matd, lightd):
-        q = full(0.0)
-        for i in range(ns):
-            for k in range(4):
-                q = q + sphd[i, k] * P_sph[i][k]
-        for j in range(m):
-            for k in range(9):
-                q = q + matd[j, k] * P_mat[j][k]
-        for li in range(nl):
-            for k in range(3):
-                q = q + lightd[li, k] * d_lp[li][k]
-        return jnp.sum(q)
-
-    _, vjp_proj = jax.vjp(project, sphd_ref[...], matd_ref[...],
-                          lightd_ref[...])
-    return vjp_proj(jnp.float32(1.0))
-
-
-def _adjoint_tree_tile_body(tri_ref, mat_ref, light_ref,
-                            sphd_ref, matd_ref, lightd_ref,
-                            eye, vx0, vy0, vz0, bi_at, mid_at, lit_at,
-                            gr, gg, gb,
-                            *, ns: int, nt: int, m: int, nl: int, depth: int,
-                            atten: float, shape, fast_recip: bool = False):
-    """The replay adjoint of the full bounce *tree* for one tile
-    (fractional-transparency scenes — the literal ``rayTraceRay`` recursion,
-    MySdlApplication.cpp:1230-1248): given per-preorder-node residual
-    accessors (``bi_at(idx)``, ``mid_at(idx)``, ``lit_at(li, idx)`` with
-    idx over the 2^(depth+1)-1 preorder nodes, matching the tree forward's
-    static unroll order) and the L2 cotangent planes, returns the per-tile
-    gradient tables (dsph, dmat, dlight) for the FitParams leaves.
-
-    Structure: an interleaved primal/reverse recursion — each node runs its
-    primal sweep (shared ``_node_primal``), recurses into the transmitted
-    then reflected subtree, assembles the children's ray cotangents, and
-    reverses itself (shared ``_node_reverse``), so the live VMEM set is one
-    path of recs (depth+1), not all 2^(depth+1)-1.  Per-entity parameter
-    cotangents accumulate into ns*4 + m*9 + nl*3 running planes, folded per
-    node, and the final gather transpose is the same linear-projection vjp
-    as the chain body.
-
-    Node weighting (all constants under fixed topology — transparency is
-    not a fit parameter): node k's local shading reaches the image with
-    weight W_k = prod over ancestor edges of (branch mask x branch weight),
-    where the transmitted edge carries take_t*hitm x trn and the reflected
-    edge carries refl_ok*hitm x (1-trn) — exactly
-    kernels/adjoint.py::replay_render_tree's masks, whose autodiff this
-    body matches (parity asserted in tests/test_adjoint_tree.py)."""
-    f32 = jnp.float32
-
-    def full(x):
-        return jnp.full(shape, x, f32)
-
-    lcol = [(light_ref[li, 3], light_ref[li, 4], light_ref[li, 5])
-            for li in range(nl)]
-    lp = [[full(lightd_ref[li, 0]), full(lightd_ref[li, 1]),
-           full(lightd_ref[li, 2])] for li in range(nl)]
-
-    # global per-entity cotangent planes (folded per node — memory is
-    # independent of the node count)
-    P_sph = [[full(0.0) for _ in range(4)] for _ in range(ns)]
-    P_mat = [[full(0.0) for _ in range(9)] for _ in range(m)]
-    d_lp = [[full(0.0) for _ in range(3)] for _ in range(nl)]
-
-    counter = [0]  # next preorder node index (static during the unroll)
-
-    def node(o, v, W3, level):
-        idx = counter[0]
-        counter[0] += 1
-        bik = bi_at(idx)
-        midl = mid_at(idx)
-        hitm = bik >= 0.0
-        is_tri = bik < float(nt)
-
-        def tri_attr(i, c):
-            sel = bik == i.astype(f32)
-            return (jnp.where(sel, tri_ref[i, 3], c[0]),
-                    jnp.where(sel, tri_ref[i, 4], c[1]),
-                    jnp.where(sel, tri_ref[i, 5], c[2]),
-                    jnp.where(sel, tri_ref[i, 16], c[3]))
-
-        tnx, tny, tnz, tnv0 = _sweep_loop(nt, tri_attr, (full(0.0),) * 4)
-
-        def mat_attr(j, c):
-            sel = midl == j.astype(f32)
-            # trn rgb, rho, take_trans (t_any & |T|>SMALL), refl_ok —
-            # the tree replay's branch gates (adjoint.py::_node_math)
-            return tuple(jnp.where(sel, mat_ref[j, k], c[q])
-                         for q, k in enumerate((9, 10, 11, 12, 13, 14)))
-
-        trn_r, trn_g, trn_b, rho, take_f_m, refl_f_m = _sweep_loop(
-            m, mat_attr, (full(0.0),) * 6)
-        lits = [lit_at(li, idx) > 0.5 for li in range(nl)]
-        c = dict(bik=bik, midl=midl, hitm=hitm, is_tri=is_tri,
-                 tn=(tnx, tny, tnz), tnv0=tnv0,
-                 trn=(trn_r, trn_g, trn_b), rho=rho, lits=lits)
-
-        sph_sel = [bik == float(nt + i) for i in range(ns)]
-        mat_sel = [midl == float(j) for j in range(m)]
-        cx, cy, cz, rr = full(0.0), full(0.0), full(0.0), full(0.0)
-        for i in range(ns):
-            s = sph_sel[i]
-            cx = jnp.where(s, sphd_ref[i, 0], cx)
-            cy = jnp.where(s, sphd_ref[i, 1], cy)
-            cz = jnp.where(s, sphd_ref[i, 2], cz)
-            rr = jnp.where(s, sphd_ref[i, 3], rr)
-        fields = [full(0.0) for _ in range(9)]
-        for j in range(m):
-            s = mat_sel[j]
-            for k in range(9):
-                fields[k] = jnp.where(s, matd_ref[j, k], fields[k])
-        gath_n = [cx, cy, cz, rr] + fields
-
-        want_snell = level < depth
-        rec, p, r_dir, t_dir = _node_primal(
-            c, gath_n, lp, o, v, nl=nl, atten=atten,
-            want_snell=want_snell, fast_recip=fast_recip)
-
-        zero3 = (full(0.0), full(0.0), full(0.0))
-        inflow = dict(p=zero3, u=zero3, n=zero3, r=zero3, cosi=full(0.0))
-        if level < depth:
-            take_mask = jnp.logical_and(take_f_m > 0.5, hitm)
-            refl_mask = jnp.logical_and(refl_f_m > 0.5, hitm)
-            tm_f = jnp.where(take_mask, 1.0, 0.0)
-            rm_f = jnp.where(refl_mask, 1.0, 0.0)
-            Wt = (W3[0] * trn_r * tm_f, W3[1] * trn_g * tm_f,
-                  W3[2] * trn_b * tm_f)
-            Wr = (W3[0] * (1.0 - trn_r) * rm_f, W3[1] * (1.0 - trn_g) * rm_f,
-                  W3[2] * (1.0 - trn_b) * rm_f)
-            vt = tuple(t * tm_f for t in t_dir)
-            vr = tuple(r * rm_f for r in r_dir)
-            ob_t, vb_t = node(p, vt, Wt, level + 1)   # transmitted subtree
-            ob_r, vb_r = node(p, vr, Wr, level + 1)   # reflected subtree
-            # child v = dir * mask -> dir_b = mask * child_v_b
-            t_b = tuple(tm_f * x for x in vb_t)
-            r_b = tuple(rm_f * x for x in vb_r)
-            u_b, n_b, cosi_b = _snell_reverse(c, rec, t_b)
-            p_in = tuple(a + b for a, b in zip(ob_t, ob_r))
-            inflow = dict(p=p_in, u=u_b, n=n_b, r=r_b, cosi=cosi_b)
-
-        d_gath_n = [full(0.0) for _ in range(13)]
-        G3 = (W3[0] * gr, W3[1] * gg, W3[2] * gb)
-        o_b, v_b = _node_reverse(c, rec, gath_n, d_gath_n, d_lp, lcol,
-                                 G3, atten, nl, inflow)
-
-        for i in range(ns):
-            mask = jnp.where(sph_sel[i], 1.0, 0.0)
-            for k in range(4):
-                P_sph[i][k] += mask * d_gath_n[k]
-        for j in range(m):
-            mask = jnp.where(mat_sel[j], 1.0, 0.0)
-            for k in range(9):
-                P_mat[j][k] += mask * d_gath_n[4 + k]
-        return o_b, v_b
-
-    node((full(eye[0]), full(eye[1]), full(eye[2])), (vx0, vy0, vz0),
-         (full(1.0), full(1.0), full(1.0)), 0)
-
-    def project(sphd, matd, lightd):
-        q = full(0.0)
-        for i in range(ns):
-            for k in range(4):
-                q = q + sphd[i, k] * P_sph[i][k]
-        for j in range(m):
-            for k in range(9):
-                q = q + matd[j, k] * P_mat[j][k]
-        for li in range(nl):
-            for k in range(3):
-                q = q + lightd[li, k] * d_lp[li][k]
-        return jnp.sum(q)
-
-    _, vjp_proj = jax.vjp(project, sphd_ref[...], matd_ref[...],
-                          lightd_ref[...])
-    return vjp_proj(jnp.float32(1.0))
-
-
-def _accumulate_grid(dsph, dmat, dlight, dsph_ref, dmat_ref, dlight_ref):
-    """First grid step initializes the gradient-table outputs; later steps
-    accumulate (the TPU grid is sequential)."""
-    first = jnp.logical_and(pl.program_id(0) == 0, pl.program_id(1) == 0)
-
-    @pl.when(first)
-    def _():
-        dsph_ref[...] = dsph
-        dmat_ref[...] = dmat
-        dlight_ref[...] = dlight
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        dsph_ref[...] += dsph
-        dmat_ref[...] += dmat
-        dlight_ref[...] += dlight
-
-
-def _bwd_tile_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                     sphd_ref, matd_ref, lightd_ref,
-                     vx_ref, vy_ref, vz_ref, bi_ref, mid_ref, lit_ref,
-                     gr_ref, gg_ref, gb_ref,
-                     dsph_ref, dmat_ref, dlight_ref,
-                     *, ns: int, nt: int, m: int, nl: int, depth: int,
-                     atten: float, want_trans: bool = True,
-                     fast_recip: bool = False):
-    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
-    dsph, dmat, dlight = _adjoint_tile_body(
-        tri_ref, mat_ref, light_ref, sphd_ref, matd_ref, lightd_ref,
-        eye, vx_ref[:], vy_ref[:], vz_ref[:],
-        bi_at=lambda lv: bi_ref[lv],
-        mid_at=lambda lv: mid_ref[lv],
-        lit_at=lambda li, lv: lit_ref[li * (depth + 1) + lv],
-        gr=gr_ref[:], gg=gg_ref[:], gb=gb_ref[:],
-        ns=ns, nt=nt, m=m, nl=nl, depth=depth, atten=atten,
-        want_trans=want_trans, shape=vx_ref.shape, fast_recip=fast_recip)
-    _accumulate_grid(dsph, dmat, dlight, dsph_ref, dmat_ref, dlight_ref)
-
-
-def _unpack_residuals(pk_ref, nl: int, pack):
-    """Lazy per-level unpack of the single-plane packed residuals
-    (render_pallas.py::pack_widths layout).  All fields are small integers
-    exact in f32; the field widths are powers of two, so the divides are
-    exact multiplies.  Returns (bi_at, mid_at, lit_at) accessors with a
-    per-level cache (each level is unpacked once)."""
-    bw_bi, bw_mid = pack
-    inv_lit = 1.0 / (bw_bi * bw_mid)
-    inv_bi = 1.0 / bw_bi
-    cache = {}
-
-    def unpack(lv):
-        if lv not in cache:
-            pk = pk_ref[lv]
-            hi = jnp.trunc(pk * inv_lit)          # lit bit field
-            rem = pk - hi * (bw_bi * bw_mid)
-            mid = jnp.trunc(rem * inv_bi)
-            biq = rem - mid * bw_bi
-            lits = []
-            for _ in range(nl):
-                nxt = jnp.trunc(hi * 0.5)
-                lits.append(hi - nxt * 2.0)
-                hi = nxt
-            cache[lv] = (biq - 1.0, mid, lits)
-        return cache[lv]
-
-    return (lambda lv: unpack(lv)[0],
-            lambda lv: unpack(lv)[1],
-            lambda li, lv: unpack(lv)[2][li])
+    sums = []
+    for i in range(ns):
+        sel = [sph_sel[lv][i] for lv in range(depth + 1)]
+        sums += [lvsum(k, sel) for k in range(4)]
+    for j in range(m):
+        sel = [mat_sel[lv][j] for lv in range(depth + 1)]
+        sums += [lvsum(4 + k, sel) for k in range(9)]
+    for li in range(nl):
+        sums += [jnp.sum(d_lp[li][k]) for k in range(3)]
+    return sums
 
 
 def _bwd_packed_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                       sphd_ref, matd_ref, lightd_ref,
                        vx_ref, vy_ref, vz_ref,
                        cr_ref, cg_ref, cb_ref,
                        tr_ref, tg_ref, tb_ref, mask_ref, pk_ref,
-                       loss_ref, dsph_ref, dmat_ref, dlight_ref,
-                       *, ns: int, nt: int, m: int, nl: int, depth: int,
-                       atten: float, want_trans: bool, fast_recip: bool,
-                       g_scale: float, pack):
+                       out_ref, *, g_scale: float, pack, width: int, **st):
     """Phase 2 of the packed two-phase fwd+bwd: the L2 cotangent
-    ``g = g_scale * mask * (img - target)`` and the masked squared-error sum
-    are formed IN the backward kernel's prologue (no XLA glue between the
-    phases — the measured ~0.2 ms of cotangent/loss glue in the round-4
-    ``fused2`` path, PERF.md §2), the packed residual plane is unpacked per
-    level, and the hand-written replay adjoint runs as usual."""
+    ``g = g_scale * mask * (img - target)`` and the masked squared-error
+    sum are formed in the kernel's prologue, the packed residual plane is
+    unpacked per level, and the hand-written replay adjoint runs.  The mask
+    is applied once, to both the loss and the cotangent, so the gradient is
+    exactly that of the returned loss for any mask."""
     eye = (misc_ref[0], misc_ref[1], misc_ref[2])
-    mask = mask_ref[:]
-    dr_raw = cr_ref[:] - tr_ref[:]
-    dg_raw = cg_ref[:] - tg_ref[:]
-    db_raw = cb_ref[:] - tb_ref[:]
+    mask = mask_ref[...]
+    dr_raw = cr_ref[...] - tr_ref[...]
+    dg_raw = cg_ref[...] - tg_ref[...]
+    db_raw = cb_ref[...] - tb_ref[...]
     dr, dg, db = dr_raw * mask, dg_raw * mask, db_raw * mask
     tile_loss = jnp.sum(dr * dr_raw + dg * dg_raw + db * db_raw)
 
-    bi_at, mid_at, lit_at = _unpack_residuals(pk_ref, nl, pack)
-    dsph, dmat, dlight = _adjoint_tile_body(
-        tri_ref, mat_ref, light_ref, sphd_ref, matd_ref, lightd_ref,
-        eye, vx_ref[:], vy_ref[:], vz_ref[:],
-        bi_at=bi_at, mid_at=mid_at, lit_at=lit_at,
+    nl = st["nl"]
+    unpacked = [unpack_level(pk_ref[lv, :], nl, pack)
+                for lv in range(st["depth"] + 1)]
+    sums = _adjoint_tile_body(
+        sph_ref, tri_ref, mat_ref, light_ref,
+        eye, vx_ref[...], vy_ref[...], vz_ref[...],
+        bi_at=lambda lv: unpacked[lv][0],
+        mid_at=lambda lv: unpacked[lv][1],
+        lit_at=lambda li, lv: unpacked[lv][2][li],
         gr=g_scale * dr, gg=g_scale * dg, gb=g_scale * db,
-        ns=ns, nt=nt, m=m, nl=nl, depth=depth, atten=atten,
-        want_trans=want_trans, shape=vx_ref.shape, fast_recip=fast_recip)
+        shape=vx_ref.shape, **st)
+    out_ref[...] = _partials_row([tile_loss] + sums, width)
 
-    tile_loss = tile_loss[None, None]
-    first = jnp.logical_and(pl.program_id(0) == 0, pl.program_id(1) == 0)
 
-    @pl.when(first)
-    def _():
-        loss_ref[...] = tile_loss
+def _recompute_bwd_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
+                          vx_ref, vy_ref, vz_ref, gr_ref, gg_ref, gb_ref,
+                          out_ref, *, width: int, **st):
+    """Recompute-forward + replay-adjoint in one launch, with the
+    cotangent supplied from outside (``gr/gg/gb`` planes).  This is the
+    per-sample backward of the supersampled fit: the forward chain re-traces
+    the block into registers (its residuals never reach device memory) and
+    the hand adjoint consumes them at once."""
+    ops = _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
+                         vx_ref.shape, **st)
+    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
+    vx0, vy0, vz0 = vx_ref[...], vy_ref[...], vz_ref[...]
+    _, levels = _chain_forward(ops, eye, vx0, vy0, vz0, nl=st["nl"],
+                               depth=st["depth"],
+                               want_trans=st["want_trans"], record=True)
+    sums = _adjoint_tile_body(
+        sph_ref, tri_ref, mat_ref, light_ref, eye, vx0, vy0, vz0,
+        bi_at=lambda lv: levels[lv]["bi"],
+        mid_at=lambda lv: levels[lv]["mid"],
+        lit_at=lambda li, lv: jnp.where(levels[lv]["lits"][li], 1.0, 0.0),
+        gr=gr_ref[...], gg=gg_ref[...], gb=gb_ref[...],
+        shape=vx_ref.shape, **st)
+    out_ref[...] = _partials_row([jnp.float32(0.0)] + sums, width)
 
-    @pl.when(jnp.logical_not(first))
-    def _():
-        loss_ref[...] += tile_loss
 
-    _accumulate_grid(dsph, dmat, dlight, dsph_ref, dmat_ref, dlight_ref)
+def _backward_call(kernel, name, packed, scene, config, planes, *,
+                   interpret, extra_in=(), block=None, **kw):
+    """pallas_call of a backward kernel over padded flat planes: each
+    program writes one row of partial sums; returns (loss sum,
+    compacted-scene gradient tables).  ``block``: (pixels, warps) per
+    program, default ``render_pallas.BWD_BLOCK``."""
+    bsize, warps = block or render_pallas.BWD_BLOCK
+    (p,) = planes[0].shape
+    st = kernel_statics(packed, scene, config)
+    _, width = grad_layout(st["ns"], st["m"], st["nl"])
+    grid = p // bsize
+    tabs = tables(packed)
+    partials = triton_call(
+        functools.partial(kernel, width=width, **kw, **st), grid=(grid,),
+        in_specs=([whole(t) for t in tabs]
+                  + [plane_spec(bsize)] * len(planes)
+                  + [pl.BlockSpec((x.shape[0], bsize), lambda i: (0, i))
+                     for x in extra_in]),
+        out_specs=pl.BlockSpec((None, width), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((grid, width), jnp.float32),
+        interpret=interpret, num_warps=warps, name=name,
+    )(*tabs, *planes, *extra_in)
+    return reduce_partials(partials, st["ns"], st["m"], st["nl"],
+                           scene.num_spheres)
 
 
 def twophase_loss_grads_pallas(scene: FlatScene, camera: Camera,
                                config: RenderConfig, target,
                                mask: Optional[Any] = None,
                                denom: Optional[float] = None,
-                               block_h: int = None, block_w: int = None,
                                interpret: Optional[bool] = None,
                                pts: Optional[Any] = None,
-                               prep: Optional[Dict[str, Any]] = None,
-                               bwd_block: Optional[tuple] = None):
-    """TRUE two-phase fwd+bwd for chain-exact scenes: phase 1 renders the
-    image AND the single-plane packed residuals (one in-loop store per
-    bounce level — render_pallas.py::pack_widths), phase 2 forms the L2
-    cotangent + loss in-kernel and runs the hand adjoint.  Same signature
-    and return value as ``fused_loss_grads_pallas``: ``(sq_err_sum,
-    grads_c)``.
+                               prep: Optional[Dict[str, Any]] = None):
+    """Two-phase fwd+bwd for chain-exact single-sample scenes: phase 1
+    renders the image AND the packed residuals (one plane per bounce level —
+    render_pallas.py::pack_widths), phase 2 forms the L2 cotangent + loss
+    in-kernel and runs the hand adjoint.  Returns ``(sq_err_sum, grads_c)``:
+    the mask-weighted squared-error sum ``sum(mask * (img - target)^2)``
+    (callers divide by the pixel count / psum it) and the compacted-scene
+    gradient tables.
 
-    ``bwd_block``: optional (bh, bw) tile for phase 2 — splitting the
-    phases lets each pick its own block shape (the adjoint's scheduling
-    optimum differs from the forward's).  Default: the scene's measured
-    backward block (``render_pallas.py::default_blocks(phase="bwd")`` —
-    16×256 small scenes, 64×512 large, 64×256 deep-large); silently falls
-    back to the forward block when it does not tile the phase-1-padded
-    planes exactly.
-
-    Why a second shape exists at all: the single-dispatch fused kernel's
-    adjoint runs at ~0.45 of the saturated VPU rate INSIDE the giant fused
-    program but 0.79 standalone — a compiled-program-size Mosaic scheduling
-    artifact (PERF.md §2, round-4 phase-isolation probes).  Splitting the
-    phases recovers the standalone rates, and the two round-4 blockers are
-    both fixed here: the residual-store overhead is cut ~4x by packing
-    (2+nl stores/level -> 1) and the ~0.2 ms of XLA cotangent/loss glue is
-    folded into phase 2's prologue."""
+    ``mask``: optional [H, W] weight plane (1 = real pixel); sharded
+    row-band callers pass ``jj < H_image`` to zero mesh-padding rows.
+    ``denom``: the loss normalizer (default ``H*W*3``) — the cotangent is
+    ``(2/denom) * mask * (img - target)``."""
     if not scene.chain_exact:
-        raise ValueError("packed two-phase backward replays the bounce "
-                         "chain; fractional-transparency scenes take the "
-                         "fused tree path (fused_loss_grads_pallas)")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    from .render_pallas import (_resolve_blocks, default_blocks,
-                                pack_widths, render_forward_packed)
+        raise ValueError("the packed two-phase backward replays the bounce "
+                         "chain; fractional-transparency scenes "
+                         "differentiate through diff.fit.l2_loss")
+    interpret = use_interpret(interpret)
     scene = compact_scene(scene)
-    if prep is not None and block_h is None and block_w is None:
-        block_h, block_w = prep["block"]
-    block_h, block_w = _resolve_blocks(scene, block_h, block_w)
-    ns, nt = scene.num_spheres, scene.num_triangles
-    m, nl = scene.num_materials, scene.num_lights
     w, h = config.width, config.height
-    depth = config.max_depth
     if denom is None:
         denom = float(h * w * 3)
 
-    packed = pack_scene(scene)
-    packed["misc"] = packed["misc"].at[0:3].set(
-        camera.eye.astype(jnp.float32))
-    sphd, matd, lightd = _pack_diff_tables(scene)
-
+    packed = pack_scene_for(scene, camera)
     if prep is None:
         prep = prepare_fit_inputs(camera, config, target, mask=mask,
-                                  block_h=block_h, block_w=block_w, pts=pts)
+                                  pts=pts)
     else:
-        _check_prep(prep, target, mask, pts, block_h, block_w)
+        _check_prep(prep, target, mask, pts)
     vx, vy, vz = prep["vx"], prep["vy"], prep["vz"]
-    tr, tg, tb, mask = prep["tr"], prep["tg"], prep["tb"], prep["mask"]
-    ph, pw = vx.shape
-
-    pack = pack_widths(packed["tri"].shape[0], ns, m, nl)
+    pack = pack_widths(packed["tri"].shape[0], packed["sph"].shape[0],
+                       scene.num_materials, scene.num_lights)
 
     # ---- phase 1: forward + packed residuals (padded planes throughout) --
-    cr, cg, cb, pk = render_forward_packed(
-        packed, scene, config, vx, vy, vz, block_h, block_w, interpret, pack)
-
+    cr, cg, cb, pk = render_forward(packed, scene, config, vx, vy, vz,
+                                    interpret=interpret, pack=pack)
     # ---- phase 2: cotangent prologue + replay adjoint ----
-    if bwd_block is None:
-        bwd_block = default_blocks(scene, phase="bwd", depth=depth)
-    if ph % bwd_block[0] == 0 and pw % bwd_block[1] == 0:
-        block_h, block_w = bwd_block
-    kernel = functools.partial(
-        _bwd_packed_kernel, ns=ns, nt=packed["tri"].shape[0], m=m, nl=nl,
-        depth=depth, atten=config.attenuation_factor,
-        want_trans=bool(scene.has_transmission), fast_recip=not interpret,
+    return _backward_call(
+        _bwd_packed_kernel, "adjoint_twophase", packed, scene, config,
+        (vx, vy, vz, cr, cg, cb, prep["tr"], prep["tg"], prep["tb"],
+         prep["mask"]), extra_in=(pk,), interpret=interpret,
         g_scale=2.0 / denom, pack=pack)
-    grid = (ph // block_h, pw // block_w)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vfull = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tile = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j),
-                        memory_space=pltpu.VMEM)
-    res_tile = pl.BlockSpec((depth + 1, block_h, block_w),
-                            lambda i, j: (0, i, j), memory_space=pltpu.VMEM)
-    acc1 = pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                        memory_space=pltpu.VMEM)
-    acc = pl.BlockSpec((max(ns, 1), SPHD_COLS), lambda i, j: (0, 0),
-                       memory_space=pltpu.VMEM)
-    acc_m = pl.BlockSpec((max(m, 1), MATD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    acc_l = pl.BlockSpec((max(nl, 1), LIGHTD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-
-    loss_sum, dsph, dmat, dlight = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem] * 5 + [vfull] * 3 + [tile] * 10 + [res_tile],
-        out_specs=[acc1, acc, acc_m, acc_l],
-        out_shape=[jax.ShapeDtypeStruct((1, 1), jnp.float32),
-                   jax.ShapeDtypeStruct((max(ns, 1), SPHD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(m, 1), MATD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(nl, 1), LIGHTD_COLS),
-                                        jnp.float32)],
-        interpret=interpret,
-        compiler_params=None if interpret else kernel_compiler_params(),
-    )(packed["sph"], packed["tri"], packed["mat"], packed["light"],
-      packed["misc"], sphd, matd, lightd, vx, vy, vz,
-      cr, cg, cb, tr, tg, tb, mask, pk)
-
-    grads_c = dict(sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
-                   mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
-                   mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
-    return loss_sum[0, 0], grads_c
-
-
-def _fused_fwd_bwd_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                          sphd_ref, matd_ref, lightd_ref,
-                          vx_ref, vy_ref, vz_ref,
-                          tr_ref, tg_ref, tb_ref, mask_ref,
-                          loss_ref, dsph_ref, dmat_ref, dlight_ref,
-                          bi_scr, mid_scr, *lit_scrs,
-                          ns: int, nt: int, m: int, nl: int, depth: int,
-                          small: float, atten: float,
-                          white_id: int, black_id: int,
-                          want_trans: bool, fast_recip: bool,
-                          g_scale: float, tree: bool = False,
-                          share_ov: bool = False,
-                          bf16_shading: bool = False):
-    """Single-kernel forward + L2 loss + replay adjoint (ROADMAP r2->3 #1):
-    the tile is rendered with the chain forward (or, for fractional-
-    transparency scenes, the full bounce-tree forward, ``tree=True``), the
-    fixed-topology residual planes stay in VMEM scratch (per bounce level
-    for the chain, per preorder tree node for the tree), the per-pixel L2
-    cotangent ``g = g_scale * mask * (img - target)`` is formed in place,
-    and the matching replay adjoint runs immediately — no residual HBM
-    round-trip and one dispatch instead of two.  ``mask`` zeroes padding
-    pixels (image->block padding and sharded row-band mesh padding alike),
-    so ``loss_ref`` accumulates the raw masked squared-error sum (divide by
-    the pixel count outside).  Semantics identical to
-    render_forward_with_residuals + fit_grads_pallas."""
-    from .render_pallas import (_chain_forward, _make_tile_ops,
-                                _tree_forward)
-    shape = vx_ref.shape
-    ops = _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                         shape, ns=ns, nt=nt, m=m, nl=nl, small=small,
-                         atten=atten, white_id=white_id, black_id=black_id,
-                         fast_recip=fast_recip, all_opaque=not want_trans,
-                         bf16_shading=bf16_shading)
-    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
-    vx0, vy0, vz0 = vx_ref[:], vy_ref[:], vz_ref[:]
-    fwd = _tree_forward if tree else _chain_forward
-    # share_ov: the last 6 scratch refs record each level's input ray so
-    # the adjoint below skips its own primal ray-chain phase (ov_at)
-    lits, ovs = lit_scrs[:nl], lit_scrs[nl:]
-    col_r, col_g, col_b = fwd(
-        ops, eye, vx0, vy0, vz0, nl=nl, depth=depth, want_trans=want_trans,
-        res_refs=(bi_scr, mid_scr) + lits + ovs)
-
-    # Mask applied ONCE: the tile loss is sum(mask * diff^2) and the
-    # cotangent is g_scale * mask * diff, so the returned gradient is exactly
-    # the gradient of the returned loss for ANY mask (binary validity planes
-    # and fractional weight maps alike).
-    mask = mask_ref[:]
-    dr_raw = col_r - tr_ref[:]
-    dg_raw = col_g - tg_ref[:]
-    db_raw = col_b - tb_ref[:]
-    dr, dg, db = dr_raw * mask, dg_raw * mask, db_raw * mask
-    tile_loss = jnp.sum(dr * dr_raw + dg * dg_raw + db * db_raw)
-
-    if tree:
-        dsph, dmat, dlight = _adjoint_tree_tile_body(
-            tri_ref, mat_ref, light_ref, sphd_ref, matd_ref, lightd_ref,
-            eye, vx0, vy0, vz0,
-            bi_at=lambda k: bi_scr[k],
-            mid_at=lambda k: mid_scr[k],
-            lit_at=lambda li, k: lit_scrs[li][k],
-            gr=g_scale * dr, gg=g_scale * dg, gb=g_scale * db,
-            ns=ns, nt=nt, m=m, nl=nl, depth=depth, atten=atten,
-            shape=shape, fast_recip=fast_recip)
-    else:
-        dsph, dmat, dlight = _adjoint_tile_body(
-            tri_ref, mat_ref, light_ref, sphd_ref, matd_ref, lightd_ref,
-            eye, vx0, vy0, vz0,
-            bi_at=lambda lv: bi_scr[lv],
-            mid_at=lambda lv: mid_scr[lv],
-            lit_at=lambda li, lv: lits[li][lv],
-            gr=g_scale * dr, gg=g_scale * dg, gb=g_scale * db,
-            ns=ns, nt=nt, m=m, nl=nl, depth=depth, atten=atten,
-            want_trans=want_trans, shape=shape, fast_recip=fast_recip,
-            ov_at=(lambda lv: tuple(ovs[k][lv] for k in range(6)))
-            if share_ov else None)
-
-    # (1,1)-shaped stores: Mosaic VMEM cannot store bare scalars
-    tile_loss = tile_loss[None, None]
-    first = jnp.logical_and(pl.program_id(0) == 0, pl.program_id(1) == 0)
-
-    @pl.when(first)
-    def _():
-        loss_ref[...] = tile_loss
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        loss_ref[...] += tile_loss
-
-    _accumulate_grid(dsph, dmat, dlight, dsph_ref, dmat_ref, dlight_ref)
-
-
-def _recompute_bwd_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                          sphd_ref, matd_ref, lightd_ref,
-                          vx_ref, vy_ref, vz_ref,
-                          gr_ref, gg_ref, gb_ref,
-                          dsph_ref, dmat_ref, dlight_ref,
-                          bi_scr, mid_scr, *lit_scrs,
-                          ns: int, nt: int, m: int, nl: int, depth: int,
-                          small: float, atten: float,
-                          white_id: int, black_id: int,
-                          want_trans: bool, fast_recip: bool,
-                          tree: bool = False, share_ov: bool = False,
-                          bf16_shading: bool = False):
-    """Recompute-forward + replay-adjoint in one dispatch, with the
-    cotangent supplied externally (``gr/gg/gb`` planes) instead of derived
-    from a target in-kernel.  This is the per-sample backward of the
-    supersampled fit: the forward chain (or bounce tree, ``tree=True``)
-    re-traces the tile into VMEM scratch residuals (never HBM) and the
-    hand adjoint consumes them immediately.  The image the loss needs was
-    already produced by the plain forward kernel; re-tracing here costs one
-    forward but saves S x (2+nl) x levels full-image residual planes of HBM
-    traffic — the round-2 cliff (VERDICT r2 item 7)."""
-    from .render_pallas import (_chain_forward, _make_tile_ops,
-                                _tree_forward)
-    shape = vx_ref.shape
-    ops = _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                         shape, ns=ns, nt=nt, m=m, nl=nl, small=small,
-                         atten=atten, white_id=white_id, black_id=black_id,
-                         fast_recip=fast_recip, all_opaque=not want_trans,
-                         bf16_shading=bf16_shading)
-    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
-    vx0, vy0, vz0 = vx_ref[:], vy_ref[:], vz_ref[:]
-    # forward re-trace (colors discarded; only the residual scratch matters).
-    # share_ov: 6 extra scratch refs record each level's input ray so the
-    # chain adjoint skips its primal phase (ov_at).
-    lits, ovs = lit_scrs[:nl], lit_scrs[nl:]
-    fwd = _tree_forward if tree else _chain_forward
-    fwd(ops, eye, vx0, vy0, vz0, nl=nl, depth=depth, want_trans=want_trans,
-        res_refs=(bi_scr, mid_scr) + lits + ovs)
-    if tree:
-        dsph, dmat, dlight = _adjoint_tree_tile_body(
-            tri_ref, mat_ref, light_ref, sphd_ref, matd_ref, lightd_ref,
-            eye, vx0, vy0, vz0,
-            bi_at=lambda k: bi_scr[k],
-            mid_at=lambda k: mid_scr[k],
-            lit_at=lambda li, k: lit_scrs[li][k],
-            gr=gr_ref[:], gg=gg_ref[:], gb=gb_ref[:],
-            ns=ns, nt=nt, m=m, nl=nl, depth=depth, atten=atten,
-            shape=shape, fast_recip=fast_recip)
-    else:
-        dsph, dmat, dlight = _adjoint_tile_body(
-            tri_ref, mat_ref, light_ref, sphd_ref, matd_ref, lightd_ref,
-            eye, vx0, vy0, vz0,
-            bi_at=lambda lv: bi_scr[lv],
-            mid_at=lambda lv: mid_scr[lv],
-            lit_at=lambda li, lv: lits[li][lv],
-            gr=gr_ref[:], gg=gg_ref[:], gb=gb_ref[:],
-            ns=ns, nt=nt, m=m, nl=nl, depth=depth, atten=atten,
-            want_trans=want_trans, shape=shape, fast_recip=fast_recip,
-            ov_at=(lambda lv: tuple(ovs[k][lv] for k in range(6)))
-            if share_ov else None)
-    _accumulate_grid(dsph, dmat, dlight, dsph_ref, dmat_ref, dlight_ref)
 
 
 def recompute_grads_pallas(scene: FlatScene, camera: Camera,
                            config: RenderConfig, g,
-                           block_h: int = None, block_w: int = None,
                            interpret: Optional[bool] = None,
                            pts: Optional[Any] = None) -> Dict[str, Any]:
-    """Single-dispatch backward with an external cotangent ``g`` [H,W,3]:
-    re-traces the forward into VMEM scratch and runs the hand adjoint.
-    Returns compacted-scene gradient tables (layout = fit_grads_pallas).
-    Used by the supersampled fit path (one dispatch per sample, zero
-    residual HBM traffic).  Fractional-transparency scenes route to the
-    bounce-tree re-trace + in-kernel tree adjoint automatically."""
-    from .render_pallas import n_tree_nodes
-    tree = not scene.chain_exact
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    scene = compact_scene(scene)
-    from .render_pallas import _resolve_blocks
-    block_h, block_w = _resolve_blocks(scene, block_h, block_w,
-                                       phase="fused")
-    ns, m, nl = scene.num_spheres, scene.num_materials, scene.num_lights
-    w, h = config.width, config.height
-    depth = config.max_depth
-    levels = n_tree_nodes(depth) if tree else depth + 1
-
-    packed = pack_scene(scene)
-    packed["misc"] = packed["misc"].at[0:3].set(
-        camera.eye.astype(jnp.float32))
-    sphd, matd, lightd = _pack_diff_tables(scene)
-
-    if pts is None:
-        pts = screen_points(camera, w, h)
-    _, v = primary_rays(camera, pts)
-    vx = _pad_img(v[:, 0], h, w, block_h, block_w)
-    vy = _pad_img(v[:, 1], h, w, block_h, block_w)
-    vz = _pad_img(v[:, 2], h, w, block_h, block_w)
-    ph, pw = vx.shape
-
-    g = jnp.asarray(g, jnp.float32)
-    gr = _pad_img(g[..., 0].reshape(-1), h, w, block_h, block_w)
-    gg = _pad_img(g[..., 1].reshape(-1), h, w, block_h, block_w)
-    gb = _pad_img(g[..., 2].reshape(-1), h, w, block_h, block_w)
-
-    share_ov = (not tree
-                and os.environ.get("RTFS_FWD_OV", "0") == "1")
-    kernel = functools.partial(
-        _recompute_bwd_kernel, ns=ns, nt=packed["tri"].shape[0], m=m, nl=nl,
-        depth=depth, small=config.small_number,
-        atten=config.attenuation_factor,
-        white_id=scene.checker_mats[0], black_id=scene.checker_mats[1],
-        want_trans=bool(scene.has_transmission), fast_recip=not interpret,
-        tree=tree, share_ov=share_ov, bf16_shading=config.bf16_shading)
-    grid = (ph // block_h, pw // block_w)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vfull = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tile = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j),
-                        memory_space=pltpu.VMEM)
-    acc = pl.BlockSpec((max(ns, 1), SPHD_COLS), lambda i, j: (0, 0),
-                       memory_space=pltpu.VMEM)
-    acc_m = pl.BlockSpec((max(m, 1), MATD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    acc_l = pl.BlockSpec((max(nl, 1), LIGHTD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    res_scr = pltpu.VMEM((levels, block_h, block_w), jnp.float32)
-
-    dsph, dmat, dlight = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem] * 5 + [vfull] * 3 + [tile] * 6,
-        out_specs=[acc, acc_m, acc_l],
-        out_shape=[jax.ShapeDtypeStruct((max(ns, 1), SPHD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(m, 1), MATD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(nl, 1), LIGHTD_COLS),
-                                        jnp.float32)],
-        scratch_shapes=[res_scr] * (2 + nl + (6 if share_ov else 0)),
-        interpret=interpret,
-        compiler_params=None if interpret else kernel_compiler_params(),
-    )(packed["sph"], packed["tri"], packed["mat"], packed["light"],
-      packed["misc"], sphd, matd, lightd, vx, vy, vz, gr, gg, gb)
-
-    return dict(sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
-                mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
-                mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
-
-
-def _pad_tile3(x, h, w, block_h, block_w, fill):
-    """[K,H,W] -> [K, padded H, padded W] with a chosen fill value."""
-    ph = (-h) % block_h
-    pw = (-w) % block_w
-    if ph or pw:
-        x = jnp.pad(x, ((0, 0), (0, ph), (0, pw)), constant_values=fill)
-    return x
-
-
-def fit_grads_pallas(scene: FlatScene, camera: Camera, config: RenderConfig,
-                     residuals: Dict[str, Any], g,
-                     block_h: int = None, block_w: int = None,
-                     interpret: Optional[bool] = None,
-                     pts: Optional[Any] = None) -> Dict[str, Any]:
-    """Run the backward kernel; returns gradient tables for the *compacted*
-    scene: dict(sph_center [ns,3], sph_radius [ns], light_pos [nl,3],
-    mat_ambient/diffuse/specular [m,3]).
-
-    ``pts``: optional pre-computed screen points [H*W, 3] — must match the
-    points the residual forward used (sharded row-band callers)."""
+    """Single-launch backward with an external cotangent ``g`` [H,W,3]:
+    re-traces the chain forward in registers and runs the hand adjoint.
+    Returns the compacted-scene gradient tables.  Used by the supersampled
+    fit path (one launch per sample, no residual in device memory)."""
     if not scene.chain_exact:
-        raise ValueError(
-            "the fused in-kernel adjoint replays the bounce *chain*; "
-            "fractional-transparency scenes take the XLA tree replay "
-            "(kernels/adjoint.py::l2_loss_pallas)")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+        raise ValueError("the recompute backward replays the bounce chain; "
+                         "fractional-transparency scenes differentiate "
+                         "through diff.fit.l2_loss")
+    interpret = use_interpret(interpret)
     scene = compact_scene(scene)
-    from .render_pallas import _resolve_blocks
-    block_h, block_w = _resolve_blocks(scene, block_h, block_w)
-    ns, nt = scene.num_spheres, scene.num_triangles
-    m, nl = scene.num_materials, scene.num_lights
     w, h = config.width, config.height
-    depth = config.max_depth
-
-    packed = pack_scene(scene)
-    packed["misc"] = packed["misc"].at[0:3].set(
-        camera.eye.astype(jnp.float32))
-    sphd, matd, lightd = _pack_diff_tables(scene)
-
+    packed = pack_scene_for(scene, camera)
     if pts is None:
         pts = screen_points(camera, w, h)
-    _, v = primary_rays(camera, pts)
-    vx = _pad_img(v[:, 0], h, w, block_h, block_w)
-    vy = _pad_img(v[:, 1], h, w, block_h, block_w)
-    vz = _pad_img(v[:, 2], h, w, block_h, block_w)
-    ph, pw = vx.shape
-
-    bi = _pad_tile3(residuals["bi"], h, w, block_h, block_w, -1.0)
-    mid = _pad_tile3(residuals["mid"], h, w, block_h, block_w, 0.0)
-    lit = residuals["lit"].reshape(nl * (depth + 1), h, w)
-    lit = _pad_tile3(lit, h, w, block_h, block_w, 0.0)
-
     g = jnp.asarray(g, jnp.float32)
-    gr = _pad_img(g[..., 0].reshape(-1), h, w, block_h, block_w)
-    gg = _pad_img(g[..., 1].reshape(-1), h, w, block_h, block_w)
-    gb = _pad_img(g[..., 2].reshape(-1), h, w, block_h, block_w)
-
-    # nt must be the *packed* triangle row count — the forward kernel offsets
-    # sphere ids by it when emitting the bi residual.
-    kernel = functools.partial(_bwd_tile_kernel, ns=ns,
-                               nt=packed["tri"].shape[0], m=m, nl=nl,
-                               depth=depth,
-                               atten=config.attenuation_factor,
-                               want_trans=bool(scene.has_transmission),
-                               fast_recip=not interpret)
-    grid = (ph // block_h, pw // block_w)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vfull = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tile = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j),
-                        memory_space=pltpu.VMEM)
-    res_tile = pl.BlockSpec((depth + 1, block_h, block_w),
-                            lambda i, j: (0, i, j), memory_space=pltpu.VMEM)
-    lit_tile = pl.BlockSpec((max(nl, 1) * (depth + 1), block_h, block_w),
-                            lambda i, j: (0, i, j), memory_space=pltpu.VMEM)
-    acc = pl.BlockSpec((max(ns, 1), SPHD_COLS), lambda i, j: (0, 0),
-                       memory_space=pltpu.VMEM)
-    acc_m = pl.BlockSpec((max(m, 1), MATD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    acc_l = pl.BlockSpec((max(nl, 1), LIGHTD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    if nl == 0:
-        lit = jnp.zeros((depth + 1, ph, pw), jnp.float32)
-
-    dsph, dmat, dlight = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem] * 5 + [vfull] * 3 + [tile] * 3
-                 + [res_tile] * 2 + [lit_tile] + [tile] * 3,
-        out_specs=[acc, acc_m, acc_l],
-        out_shape=[jax.ShapeDtypeStruct((max(ns, 1), SPHD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(m, 1), MATD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(nl, 1), LIGHTD_COLS),
-                                        jnp.float32)],
-        interpret=interpret,
-        compiler_params=None if interpret else kernel_compiler_params(),
-    )(packed["sph"], packed["tri"], packed["mat"], packed["light"],
-      packed["misc"], sphd, matd, lightd, vx, vy, vz, bi, mid, lit,
-      gr, gg, gb)
-
-    return dict(sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
-                mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
-                mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
+    planes = ray_planes(camera, pts, PLANE_MULT) + tuple(
+        pad_plane(g[..., k], PLANE_MULT) for k in range(3))
+    _, grads_c = _backward_call(_recompute_bwd_kernel, "adjoint_recompute",
+                                packed, scene, config, planes,
+                                interpret=interpret)
+    return grads_c
 
 
 def prepare_fit_inputs(camera: Camera, config: RenderConfig, target,
                        mask: Optional[Any] = None,
-                       block_h: int = 8, block_w: int = 512,
                        pts: Optional[Any] = None) -> Dict[str, Any]:
-    """Precompute the padded per-pixel input planes of the fused fwd+bwd
-    kernel: primary-ray directions, target RGB and the pixel mask —
-    everything that depends only on (camera, config, target), NOT on the
-    fit parameters.
-
-    ``block_h``/``block_w`` must equal the block the kernel call will
-    resolve (for large scenes the fused kernel's default is NOT 8×512 —
-    resolve via ``render_pallas.py::default_blocks`` first, or use
-    ``diff/fit.py::make_fit_step_pallas``, which does).
+    """Precompute the padded per-pixel input planes of the two-phase fit:
+    primary-ray directions, target RGB and the pixel mask — everything that
+    depends only on (camera, config, target), NOT on the fit parameters.
 
     In a fit loop these are step-invariant, but XLA does not hoist them out
-    of a ``lax.scan``/training-loop body: recomputing them per step costs
-    ~10 full-image elementwise ops plus 7 pad copies of HBM traffic
-    (~0.1 ms at 1024², ~3% of the fused step).  Call this once and pass the
-    result as ``prep=`` to ``fused_loss_grads_pallas`` /
+    of a ``lax.scan``/training-loop body.  Call this once and pass the
+    result as ``prep=`` to ``twophase_loss_grads_pallas`` /
     ``fit_value_and_grad`` — the per-step work is then only the tiny
-    parameter-table packing plus the kernel itself."""
+    scene-table packing plus the kernels."""
     w, h = config.width, config.height
     target0, mask0, pts0 = target, mask, pts   # as-passed, for provenance
     if pts is None:
         pts = screen_points(camera, w, h)
-    _, v = primary_rays(camera, pts)
-    vx = _pad_img(v[:, 0], h, w, block_h, block_w)
-    vy = _pad_img(v[:, 1], h, w, block_h, block_w)
-    vz = _pad_img(v[:, 2], h, w, block_h, block_w)
+    vx, vy, vz = ray_planes(camera, pts, PLANE_MULT)
     target = jnp.asarray(target, jnp.float32)
-    tr = _pad_img(target[..., 0].reshape(-1), h, w, block_h, block_w)
-    tg = _pad_img(target[..., 1].reshape(-1), h, w, block_h, block_w)
-    tb = _pad_img(target[..., 2].reshape(-1), h, w, block_h, block_w)
+    tr, tg, tb = (pad_plane(target[..., k], PLANE_MULT) for k in range(3))
     if mask is None:
         mask = jnp.ones((h, w), jnp.float32)
-    mask = _pad_img(jnp.asarray(mask, jnp.float32).reshape(-1),
-                    h, w, block_h, block_w)
+    mask = pad_plane(jnp.asarray(mask, jnp.float32), PLANE_MULT)
     # provenance: the exact objects this prep was built from, so a caller
     # passing a DIFFERENT target/mask alongside a stale prep gets an error
     # instead of silently computing loss/grads against the old target
-    # (the strong refs also pin the ids against reuse).  Caveat: traced
-    # values can't be identity-checked and skip the check — see
-    # _check_prep's LIMITATION note
+    # (the strong refs also pin the ids against reuse)
     return dict(vx=vx, vy=vy, vz=vz, tr=tr, tg=tg, tb=tb, mask=mask,
-                block=(block_h, block_w),
                 src=dict(target=target0, mask=mask0, pts=pts0))
 
 
-def _check_prep(prep, target, mask, pts, block_h, block_w):
-    """Raise if ``prep`` disagrees with the call it's used in: block shape,
-    or a target/mask/pts object DIFFERENT from the one the prep was built
-    from (identity check — rebuild the prep, or pass None, when the target
-    changes; values can't be compared under tracing).
+def _check_prep(prep, target, mask, pts):
+    """Raise if ``prep`` was built from a target/mask/pts object DIFFERENT
+    from the one this call passes (identity check — rebuild the prep, or
+    pass None, when the target changes).
 
     LIMITATION: a TRACED target/mask/pts cannot be identity-checked, so it
-    is skipped (not errored — jitting a step with the target as a jit
-    argument alongside a matching prep is legitimate, ADVICE r4).  The
-    flip side: if such a caller then feeds a DIFFERENT target array at
-    call time, the kernel still uses the prep's baked planes with no
-    error.  When the target varies across calls, don't bake it: build the
-    prep without it, or rebuild the prep per target."""
-    if prep["block"] != (block_h, block_w):
-        raise ValueError(f"prep was built for block {prep['block']}, "
-                         f"called with ({block_h}, {block_w})")
-    src = prep.get("src")
-    if src is None:   # prep built by an older caller: only block checked
-        return
+    is skipped (jitting a step with the target as a jit argument alongside
+    a matching prep is legitimate).  The flip side: if such a caller feeds
+    a DIFFERENT target array at call time, the kernel still uses the prep's
+    planes with no error.  When the target varies across calls, rebuild
+    the prep per target."""
+    src = prep["src"]
     for name, got in (("target", target), ("mask", mask), ("pts", pts)):
-        # a traced value can't be identity-compared to the concrete object
-        # the prep was built from — a caller jitting its own step with
-        # target as an argument is fine (the prep's planes are used, the
-        # tracer ignored), so skip rather than error at trace time
         if isinstance(got, jax.core.Tracer):
             continue
         if got is not None and src[name] is not got:
@@ -1451,122 +805,6 @@ def _check_prep(prep, target, mask, pts, block_h, block_w):
                 f"prep= was built from a different `{name}` object than "
                 f"this call passes; prepare_fit_inputs() again for the new "
                 f"{name} (or pass {name}=None to use the prep's planes)")
-
-
-def fused_loss_grads_pallas(scene: FlatScene, camera: Camera,
-                            config: RenderConfig, target,
-                            mask: Optional[Any] = None,
-                            denom: Optional[float] = None,
-                            block_h: int = None, block_w: int = None,
-                            interpret: Optional[bool] = None,
-                            pts: Optional[Any] = None,
-                            prep: Optional[Dict[str, Any]] = None):
-    """Single-kernel fwd+bwd (one dispatch, residuals never touch HBM):
-    returns ``(sq_err_sum, grads_c)`` where ``sq_err_sum`` is the
-    mask-weighted squared-error sum ``sum(mask * (img - target)^2)``
-    (callers divide by the pixel count / psum it) and ``grads_c`` the
-    compacted-scene gradient tables, identical in layout to
-    ``fit_grads_pallas``'s result.
-
-    ``mask``: optional [H, W] weight plane (1 = real pixel); sharded
-    row-band callers pass ``jj < H_image`` to zero mesh-padding rows.
-    Fractional weights are supported (mask is applied once, to both the
-    loss and the cotangent).
-    ``denom``: the loss normalizer (default ``H*W*3``) — the cotangent is
-    ``(2/denom) * mask * (img - target)``.
-
-    Fractional-transparency scenes (not chain-exact) route automatically to
-    the bounce-tree variant: tree forward + in-kernel tree adjoint, with
-    2^(depth+1)-1 preorder-node residual planes in VMEM scratch (cost grows
-    as 2^depth, like the tree forward itself).
-
-    Numerical note: the scalar loss accumulates tile-by-tile into one f32
-    VMEM cell across the sequential grid; at very large grids (4096^2 ->
-    thousands of tiles) this sequential f32 sum can drift a few ulps from
-    the XLA tree reduction of the two-phase path.  Gradients are unaffected
-    (per-entity table sums), and Adam only consumes the gradients."""
-    from .render_pallas import n_tree_nodes
-    tree = not scene.chain_exact
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    scene = compact_scene(scene)
-    from .render_pallas import _resolve_blocks
-    if prep is not None and block_h is None and block_w is None:
-        block_h, block_w = prep["block"]
-    block_h, block_w = _resolve_blocks(scene, block_h, block_w,
-                                       phase="fused")
-    ns, m, nl = scene.num_spheres, scene.num_materials, scene.num_lights
-    w, h = config.width, config.height
-    depth = config.max_depth
-    levels = n_tree_nodes(depth) if tree else depth + 1
-    if denom is None:
-        denom = float(h * w * 3)
-
-    packed = pack_scene(scene)
-    packed["misc"] = packed["misc"].at[0:3].set(
-        camera.eye.astype(jnp.float32))
-    sphd, matd, lightd = _pack_diff_tables(scene)
-
-    if prep is None:
-        prep = prepare_fit_inputs(camera, config, target, mask=mask,
-                                  block_h=block_h, block_w=block_w, pts=pts)
-    else:
-        _check_prep(prep, target, mask, pts, block_h, block_w)
-    vx, vy, vz = prep["vx"], prep["vy"], prep["vz"]
-    tr, tg, tb, mask = prep["tr"], prep["tg"], prep["tb"], prep["mask"]
-    ph, pw = vx.shape
-
-    # chain scenes: the forward CAN record each level's input ray into 6
-    # extra scratch planes so the adjoint skips its primal phase
-    # (RTFS_FWD_OV=1).  Measured SLOWER on v5e (the scratch write+read
-    # round-trip costs more than the recomputed primal: 3.20 -> 3.45 ms at
-    # 1024^2 d3, scripts notes in PERF.md), so default OFF; kept as the
-    # A/B knob documenting the negative result.
-    share_ov = (not tree
-                and os.environ.get("RTFS_FWD_OV", "0") == "1")
-    kernel = functools.partial(
-        _fused_fwd_bwd_kernel, ns=ns, nt=packed["tri"].shape[0], m=m, nl=nl,
-        depth=depth, small=config.small_number,
-        atten=config.attenuation_factor,
-        white_id=scene.checker_mats[0], black_id=scene.checker_mats[1],
-        want_trans=bool(scene.has_transmission), fast_recip=not interpret,
-        g_scale=2.0 / denom, tree=tree, share_ov=share_ov,
-        bf16_shading=config.bf16_shading)
-    grid = (ph // block_h, pw // block_w)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    vfull = pl.BlockSpec(memory_space=pltpu.VMEM)
-    tile = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j),
-                        memory_space=pltpu.VMEM)
-    acc1 = pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                        memory_space=pltpu.VMEM)
-    acc = pl.BlockSpec((max(ns, 1), SPHD_COLS), lambda i, j: (0, 0),
-                       memory_space=pltpu.VMEM)
-    acc_m = pl.BlockSpec((max(m, 1), MATD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    acc_l = pl.BlockSpec((max(nl, 1), LIGHTD_COLS), lambda i, j: (0, 0),
-                         memory_space=pltpu.VMEM)
-    res_scr = pltpu.VMEM((levels, block_h, block_w), jnp.float32)
-
-    loss_sum, dsph, dmat, dlight = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem] * 5 + [vfull] * 3 + [tile] * 7,
-        out_specs=[acc1, acc, acc_m, acc_l],
-        out_shape=[jax.ShapeDtypeStruct((1, 1), jnp.float32),
-                   jax.ShapeDtypeStruct((max(ns, 1), SPHD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(m, 1), MATD_COLS), jnp.float32),
-                   jax.ShapeDtypeStruct((max(nl, 1), LIGHTD_COLS),
-                                        jnp.float32)],
-        scratch_shapes=[res_scr] * (2 + nl + (6 if share_ov else 0)),
-        interpret=interpret,
-        compiler_params=None if interpret else kernel_compiler_params(),
-    )(packed["sph"], packed["tri"], packed["mat"], packed["light"],
-      packed["misc"], sphd, matd, lightd, vx, vy, vz, tr, tg, tb, mask)
-
-    grads_c = dict(sph_center=dsph[:ns, 0:3], sph_radius=dsph[:ns, 3],
-                   mat_ambient=dmat[:m, 0:3], mat_diffuse=dmat[:m, 3:6],
-                   mat_specular=dmat[:m, 6:9], light_pos=dlight[:nl, 0:3])
-    return loss_sum[0, 0], grads_c
 
 
 def _sphere_take(scene: FlatScene):
@@ -1604,87 +842,44 @@ def grads_to_fitparams(params: FitParams, scene_full: FlatScene,
 
 def fit_value_and_grad(params: FitParams, scene: FlatScene, camera: Camera,
                        config: RenderConfig, target,
-                       block_h: int = None, block_w: int = None,
                        interpret: Optional[bool] = None, key=None,
-                       single_kernel: bool = True,
-                       prep: Optional[Dict[str, Any]] = None,
-                       mode: Optional[str] = None):
+                       prep: Optional[Dict[str, Any]] = None):
     """(loss, d loss/d params) of the L2 photometric loss with the Pallas
-    forward and the fused in-kernel backward — the fast path for the
-    BASELINE config-4 fit and the fwd+bwd benchmark.
+    kernels — the fast path for the BASELINE config-4 fit and the fwd+bwd
+    benchmark.  The path is chosen from the scene and config:
 
-    ``mode`` selects the kernel shape for chain-exact single-sample scenes:
-      * ``"twophase"`` (default) — packed-residual forward kernel + backward
-        kernel with in-kernel cotangent/loss prologue
-        (``twophase_loss_grads_pallas``).  Fastest measured: the adjoint
-        escapes the fused program's Mosaic scheduling penalty (PERF.md §2).
-      * ``"fused"`` — single-dispatch fwd+loss+adjoint, residuals in VMEM
-        scratch (``fused_loss_grads_pallas``).
-      * ``"split"`` — residual forward + XLA cotangent + backward kernel
-        (the round-3 shape; equals ``single_kernel=False``).
-    ``None`` reads env ``RTFS_FIT_MODE`` (default "twophase"); the legacy
-    ``single_kernel=False`` maps to "split".  All three are semantically
-    identical (same topology convention, f32-reassociation-level parity).
-    Fractional-transparency (tree) scenes always use the fused tree kernel.
-
-    Supersampled targets (``config.samples > 1`` / ``force_jitter``) are
-    supported: the rendered image is the mean of S jittered single-sample
-    kernel renders (same PRNG stream as the core renderer, so targets
-    rendered by either forward match); the backward then runs one
-    recompute-adjoint dispatch per sample (``recompute_grads_pallas``:
-    the forward chain is re-traced into VMEM scratch inside the backward
-    kernel, so no residual plane ever touches HBM — round 2 materialized
-    all S residual sets, ~S x (2+nl) x (depth+1) full-image planes) with
-    cotangent g/S, summing the gradient tables.  ``config.adaptive`` is
-    supported the same way: the per-sample acceptance masks and the
-    early-exit divisor are recorded by the forward scan as fixed-topology
-    residuals (discrete outcomes, like hit ids), and each sample's
-    cotangent is weighted by accept_k / divisor.
+      * chain-exact, one sample: the packed two-phase kernels
+        (``twophase_loss_grads_pallas``);
+      * chain-exact, supersampled (``config.samples > 1`` / ``force_jitter``,
+        adaptive or not): the image is the mean of S jittered single-sample
+        kernel renders (same PRNG stream as the core renderer, so targets
+        rendered by either forward match); the backward runs one
+        recompute-adjoint launch per sample (``recompute_grads_pallas``)
+        with cotangent g/S and sums the gradient tables.  For
+        ``config.adaptive`` the per-sample acceptance masks and the
+        early-exit divisor are recorded by the forward scan as
+        fixed-topology residuals and each sample's cotangent is weighted by
+        accept_k / divisor;
+      * fractional transparency (the bounce tree): XLA autodiff of the core
+        renderer, ``jax.value_and_grad(diff.fit.l2_loss)``.
 
     Equivalent to ``jax.value_and_grad(l2_loss_pallas)`` (kernels/adjoint.py)
     restricted to the ``FitParams`` leaves; scene/camera are constants."""
-    import dataclasses
-
-    from ..ops.rays import sample_jitter
-
     scene_full = params.into_scene(scene)
-    if mode is None:
-        mode = ("split" if not single_kernel
-                else os.environ.get("RTFS_FIT_MODE", "twophase"))
-    if mode not in ("twophase", "fused", "split"):
-        raise ValueError(f"unknown fit mode {mode!r}")
     use_jitter = config.samples > 1 or config.force_jitter
-    if prep is not None and (use_jitter
-                             or (mode == "split"
-                                 and scene_full.chain_exact)):
-        raise ValueError("prep= is only supported on the twophase/fused "
-                         "paths (no supersampling)")
+    if prep is not None and (use_jitter or not scene_full.chain_exact):
+        raise ValueError("prep= is only supported on the single-sample "
+                         "chain path")
+    if not scene_full.chain_exact:
+        return jax.value_and_grad(l2_loss)(params, scene, camera, config,
+                                           target)
     if not use_jitter:
         denom = float(config.height * config.width * 3)
-        if not scene_full.chain_exact:
-            mode = "fused"   # tree scenes: in-kernel bounce-tree fwd+adjoint
-        if mode in ("twophase", "fused"):
-            # twophase: packed-residual forward kernel + backward kernel
-            # with in-kernel cotangent prologue; fused: one dispatch with
-            # residual planes in VMEM scratch.  Identical semantics.
-            impl = (twophase_loss_grads_pallas if mode == "twophase"
-                    else fused_loss_grads_pallas)
-            sq_sum, grads_c = impl(
-                scene_full, camera, config, target, denom=denom,
-                block_h=block_h, block_w=block_w, interpret=interpret,
-                prep=prep)
-            return sq_sum / denom, grads_to_fitparams(params, scene_full,
-                                                      grads_c)
-        img, res = render_forward_with_residuals(
-            scene_full, camera, config, block_h=block_h, block_w=block_w,
-            interpret=interpret)
-        diff = img - target
-        loss = jnp.mean(diff * diff)
-        g = (2.0 / denom) * diff
-        grads_c = fit_grads_pallas(scene_full, camera, config, res, g,
-                                   block_h=block_h, block_w=block_w,
-                                   interpret=interpret)
-        return loss, grads_to_fitparams(params, scene_full, grads_c)
+        sq_sum, grads_c = twophase_loss_grads_pallas(
+            scene_full, camera, config, target, denom=denom,
+            interpret=interpret, prep=prep)
+        return sq_sum / denom, grads_to_fitparams(params, scene_full,
+                                                  grads_c)
 
     S = config.samples
     if key is None:
@@ -1696,6 +891,14 @@ def fit_value_and_grad(params: FitParams, scene: FlatScene, camera: Camera,
 
     from .render_pallas import render_image_pallas
 
+    def jittered(key_k):
+        return pts0 + sample_jitter(key_k, pts0.shape[0],
+                                    config.jitter_scale, dtype=pts0.dtype)
+
+    def render_sample(key_k):
+        return render_image_pallas(scene_full, camera, cfg1,
+                                   interpret=interpret, pts=jittered(key_k))
+
     if config.adaptive:
         # Fixed-topology adjoint of the adaptive supersampler
         # (MySdlApplication.cpp:1294-1311 emulation): the per-sample
@@ -1704,18 +907,13 @@ def fit_value_and_grad(params: FitParams, scene: FlatScene, camera: Camera,
         # the forward scan, then weight each sample's cotangent by
         # accept_k / divisor in the backward.  This matches jax.grad of
         # the core emulation (the convergence test and divisor carry no
-        # continuous dependence on the parameters), unlocking gradients
-        # for the reference's default render mode on the kernel path.
+        # continuous dependence on the parameters).
         small = config.small_number
 
         def fwd_body_ad(carry, inp):
             accum, divisor, done = carry
             k, key_k = inp
-            jit = sample_jitter(key_k, pts0.shape[0], config.jitter_scale,
-                                dtype=pts0.dtype)
-            img_s = render_image_pallas(scene_full, camera, cfg1,
-                                        block_h=block_h, block_w=block_w,
-                                        interpret=interpret, pts=pts0 + jit)
+            img_s = render_sample(key_k)
             accept = jnp.logical_not(done)
             accum_after = jnp.where(done[..., None], accum, accum + img_s)
             d = k * accum_after - (k + 1.0) * accum
@@ -1736,26 +934,18 @@ def fit_value_and_grad(params: FitParams, scene: FlatScene, camera: Camera,
         loss = jnp.mean(diff * diff)
         g = (2.0 / diff.size) * diff
 
-        def bwd_body_ad(carry, inp):
+        def bwd_body(carry, inp):
             key_k, accept = inp
-            jit = sample_jitter(key_k, pts0.shape[0], config.jitter_scale,
-                                dtype=pts0.dtype)
             wk = jnp.where(accept, 1.0, 0.0) / divisor
             grads_s = recompute_grads_pallas(
                 scene_full, camera, cfg1, g * wk[..., None],
-                block_h=block_h, block_w=block_w,
-                interpret=interpret, pts=pts0 + jit)
+                interpret=interpret, pts=jittered(key_k))
             return jax.tree_util.tree_map(jnp.add, carry, grads_s), None
 
-        bwd_body, bwd_xs = bwd_body_ad, (keys, accepts)
+        bwd_xs = (keys, accepts)
     else:
         def fwd_body(carry, k):
-            jit = sample_jitter(k, pts0.shape[0], config.jitter_scale,
-                                dtype=pts0.dtype)
-            img_s = render_image_pallas(scene_full, camera, cfg1,
-                                        block_h=block_h, block_w=block_w,
-                                        interpret=interpret, pts=pts0 + jit)
-            return carry + img_s, None
+            return carry + render_sample(k), None
 
         img_sum, _ = jax.lax.scan(
             fwd_body, jnp.zeros((h, w, 3), jnp.float32), keys)
@@ -1765,13 +955,9 @@ def fit_value_and_grad(params: FitParams, scene: FlatScene, camera: Camera,
         g = (2.0 / (diff.size * S)) * diff
 
         def bwd_body(carry, k):
-            jit = sample_jitter(k, pts0.shape[0], config.jitter_scale,
-                                dtype=pts0.dtype)
             grads_s = recompute_grads_pallas(scene_full, camera, cfg1, g,
-                                             block_h=block_h,
-                                             block_w=block_w,
                                              interpret=interpret,
-                                             pts=pts0 + jit)
+                                             pts=jittered(k))
             return jax.tree_util.tree_map(jnp.add, carry, grads_s), None
 
         bwd_xs = keys

@@ -1,66 +1,101 @@
-"""Fused Pallas forward render kernel — the "fragment shader" the reference
-assignment planned but never finished (Hw4/TODO.txt:13-33: fullscreen quad,
-scene as uniform arrays of structs, intersection as plain functions), realized
-as a TPU kernel.
+"""Pallas forward render kernel (Triton route) — the "fragment shader" the
+reference assignment planned but never finished (Hw4/TODO.txt:13-33:
+fullscreen quad, scene as uniform arrays of structs, intersection as plain
+functions): one program per block of pixels.
 
-One kernel invocation renders a (BH, 128*k) pixel tile end-to-end: camera
-rays in, RGB out.  The whole bounce chain — closest-hit over all primitives,
-transparency-aware shadow rays, Phong shading with distance attenuation,
-reflect/transmit child-ray selection — runs in VMEM registers with zero HBM
-round-trips between stages.  Scene parameters live in SMEM as scalar tables
-(the TODO's "uniform arrays of structs"), looped over with fori_loop.
+One program renders a block of ``block`` consecutive pixels of the flattened
+frame end to end: camera rays in, RGB out.  The whole bounce chain —
+closest-hit over all primitives, transparency-aware shadow rays, Phong
+shading with distance attenuation, reflect/transmit child-ray selection —
+stays in registers with no device-memory round trip between stages.  Scene
+parameters are small tables in global memory (the TODO's "uniform arrays of
+structs"), read with scalar loads inside the sweeps; they are a few KB and
+stay in L1/L2.
 
 Scope (matches the chain renderer, core/renderer.py):
   * chain-exact scenes (every material transparency all-0 or all-1 — true of
-    all reference materials); scenes needing the full bounce tree fall back
-    to the XLA tree renderer;
+    all reference materials); scenes needing the full bounce tree render
+    through the XLA tree renderer (``render_points``);
   * bounding-sphere pruning is skipped: for well-formed scenes (geometry
     inside its bounding spheres) it is a pure optimization with no image
-    effect (tested in test_oracle_parity.py); closest-hit over <=100
-    primitives is cheaper than the prune arithmetic at tile granularity;
+    effect (tested in test_oracle_parity.py);
   * the origin-primitive exclusion (SEMANTICS.md D1) is preserved exactly.
 """
 from __future__ import annotations
 
 import functools
-import os
-from typing import Any, Dict, Tuple
+import types
+from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..config import RenderConfig
 from ..ops.rays import Camera, primary_rays, sample_jitter, screen_points
 from ..scene.flat import FlatScene, tri_derived
-from ..utils import fastmath
 
 BIG = 3.0e38
 
-# Mosaic scoped-VMEM ceiling for every render/adjoint kernel.  The default
-# 16 MiB scoped limit exists to leave double-buffering headroom for
-# HBM-streaming kernels; these kernels move ~24 B/pixel against ~11k VPU
-# slots/pixel (compute-bound by 3 orders), so trading pipelining headroom
-# for larger tiles is free.  (Per-fori-iteration scalar bookkeeping is no
-# longer the block-size driver — the sweeps unroll, see _sweep_loop; the
-# round-4 tile sweep picked 8x512 for both fwd and fwd+bwd.)  v5e has
-# 128 MiB of VMEM.
-VMEM_LIMIT_BYTES = int(os.environ.get("RTFS_VMEM_LIMIT_MB", "100")) * 2**20
-
-
-def kernel_compiler_params() -> "pltpu.CompilerParams":
-    """CompilerParams shared by all render/adjoint pallas_calls (ignored in
-    interpret mode)."""
-    return pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT_BYTES)
-
-# SMEM table layouts (one row per primitive/material/light)
+# Scene-table layouts (one row per primitive/material/light)
 SPH_COLS = 8    # cx cy cz r mat valid transp_any -
 TRI_COLS = 24   # v0(3) n(3) u(3) v(3) uv uu vv denom ndotv0 mat checker degenerate+valid(=ok) transp_any - -
 MAT_COLS = 20   # amb(3) dif(3) spe(3) trn(3) rho take_trans refl_ok transp_any - - -
 LIGHT_COLS = 8  # pos(3) color(3) - -
 MISC_COLS = 16  # eye(3) board_pos(3) board_half board_square - -
+
+#: (pixels per program, warps per program) of each kernel, chosen on the
+#: H100 (PERF.md, "Findings").  Pixel blocks are powers of two (Triton) and
+#: at most ``PLANE_MULT``.
+FWD_BLOCK = (256, 4)
+BWD_BLOCK = (128, 4)
+
+#: Flat per-pixel planes are zero-padded to a multiple of this, so every
+#: block size divides them.
+PLANE_MULT = 1024
+
+def use_interpret(interpret: Optional[bool]) -> bool:
+    """The one place that decides how a Pallas kernel runs.
+
+    ``interpret=True`` runs it in the Pallas interpreter (any platform —
+    how the CPU tests run it).  Otherwise the kernel is compiled through
+    Triton, which needs a GPU: on any other platform this raises instead of
+    falling back to the interpreter or to another code path."""
+    if interpret:
+        return True
+    platform = jax.default_backend()
+    if platform != "gpu":
+        raise RuntimeError(
+            f"the Pallas kernels compile only for a GPU, and JAX's platform "
+            f"is {platform!r}; pass interpret=True to run them in the "
+            f"Pallas interpreter, or use the XLA entry points "
+            f"(render_image, make_fit_step)")
+    return False
+
+
+def triton_call(kernel, *, grid, in_specs, out_specs, out_shape,
+                interpret: bool, num_warps: int, name: str):
+    """``pl.pallas_call`` on the Triton route (every kernel of the package
+    goes through here)."""
+    return pl.pallas_call(
+        kernel, grid=grid, in_specs=in_specs, out_specs=out_specs,
+        out_shape=out_shape, interpret=interpret, name=name,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1))
+
+
+def whole(x) -> pl.BlockSpec:
+    """BlockSpec of an array every program reads whole (scene tables)."""
+    return pl.BlockSpec(x.shape, lambda i: (0,) * x.ndim)
+
+
+def plane_spec(block: int) -> pl.BlockSpec:
+    """BlockSpec of a flattened per-pixel plane: program i owns pixels
+    [i*block, (i+1)*block)."""
+    return pl.BlockSpec((block,), lambda i: (i,))
 
 
 def compact_scene(scene: FlatScene) -> FlatScene:
@@ -92,7 +127,7 @@ def compact_scene(scene: FlatScene) -> FlatScene:
 
 
 def pack_scene(scene: FlatScene) -> Dict[str, Any]:
-    """FlatScene -> SMEM scalar tables (the kernel's 'uniforms').
+    """FlatScene -> scalar tables (the kernel's 'uniforms').
     Padding primitives are compacted away when the masks are concrete."""
     scene = compact_scene(scene)
     f32 = jnp.float32
@@ -159,91 +194,47 @@ def pack_scene(scene: FlatScene) -> Dict[str, Any]:
     return dict(sph=sph, tri=tri, mat=mat, light=light, misc=misc)
 
 
-# full-unroll threshold and partial-unroll factor for _sweep_loop's "auto"
-_SWEEP_FULL_MAX = 32
-_SWEEP_CHUNK = 8
+def pack_scene_for(scene: FlatScene, camera: Camera) -> Dict[str, Any]:
+    """``pack_scene`` with the camera eye written into the misc table."""
+    packed = dict(pack_scene(scene))
+    packed["misc"] = packed["misc"].at[0:3].set(
+        camera.eye.astype(jnp.float32))
+    return packed
+
+
+def tables(packed):
+    """The five scene tables in kernel-argument order."""
+    return (packed["sph"], packed["tri"], packed["mat"], packed["light"],
+            packed["misc"])
 
 
 def _sweep_loop(n, body, init):
-    """The primitive/material sweep loop of the tile kernels.
-
-    Per-iteration fori_loop bookkeeping (loop branch + dynamic SMEM
-    addressing on the scalar core) measured 27% of the FORWARD step at
-    32x256 (scripts/unroll_probe.py: 3.08 -> 2.23 ms at 1024^2 depth 3),
-    so the default policy "auto" unrolls: fully for small trip counts
-    (constant SMEM addresses, straight-line code), and in chunks of
-    ``_SWEEP_CHUNK`` for large ones (64-sphere scenes) so the Mosaic
-    program stays bounded while bookkeeping amortizes 8x.  Values are
-    bit-identical in every mode (same op order).  Trace-time knob
-    ``RTFS_SWEEP_UNROLL``: "auto" (default), "1" = always full,
-    "0" = plain fori_loop (the A/B baseline).
-
-    CAVEAT (applies to every RTFS_* env knob in this package:
-    RTFS_SWEEP_UNROLL, RTFS_LEVEL_UNROLL, RTFS_FWD_OV, RTFS_BWD_RECOMPUTE,
-    RTFS_FIT_MODE): the env var is read at TRACE time and is not part of
-    the jit cache key — flipping it in-process after a jitted caller has
-    traced has no effect until that caller retraces (new closure, changed
-    static args, or ``jax.clear_caches()``).  The A/B scripts rebuild their
-    closures per setting for exactly this reason; set the knobs before the
-    first call in normal use."""
-    mode = os.environ.get("RTFS_SWEEP_UNROLL", "auto")
-    if mode == "0":
-        return jax.lax.fori_loop(0, n, body, init)
-    if mode == "1" or n <= _SWEEP_FULL_MAX:
-        c = init
-        for i in range(n):
-            c = body(jnp.int32(i), c)
-        return c
-    k = _SWEEP_CHUNK
-    main = n - n % k
-
-    def block(b, c):
-        i0 = b * k
-        for d in range(k):
-            c = body(i0 + d, c)
-        return c
-
-    c = jax.lax.fori_loop(0, main // k, block, init)
-    for i in range(main, n):
-        c = body(jnp.int32(i), c)
-    return c
+    """The primitive/material sweep of the kernels, as a loop.  Unrolled
+    into straight-line code, the config-3 forward compiled in ~115 s
+    instead of ~6 s and ran 3.2x slower on the H100 (PERF.md)."""
+    return jax.lax.fori_loop(0, n, body, init)
 
 
 def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
                    *, ns: int, nt: int, m: int, nl: int,
                    small: float, atten: float,
-                   white_id: int, black_id: int, fast_recip: bool,
-                   all_opaque: bool = False, bf16_shading: bool = False):
-    """Shared per-tile primitives for the chain and tree kernels: closest-hit
-    sweep, winning-primitive/material gathers, secondary directions, and the
-    shadow+Phong shading loop.  All functions operate on [BH,BW] f32 planes
-    held in vector registers/VMEM.
+                   white_id: int, black_id: int, want_trans: bool, **_):
+    """Per-block primitives of the chain forward: closest-hit sweep,
+    winning-primitive/material gathers, secondary directions, and the
+    shadow+Phong shading loop.  All functions operate on f32 pixel planes
+    of ``shape``; the keyword arguments are ``kernel_statics``.
 
-    ``all_opaque`` (static): no scene material is transparent, so shadow
-    sweeps run in any-hit mode (no nearest-occluder ordering — see
-    ``intersect_all``).  Callers pass ``not scene.has_transmission``.
-
-    ``bf16_shading`` (static, opt-in — RenderConfig.bf16_shading): the
-    any-hit shadow sweeps and the Phong blend run their mul/fma arithmetic
-    in bfloat16 (2-per-lane on the v5e VPU), with f32 upcasts at every
-    compare and reciprocal (Mosaic rejects bf16 cmp/rsqrt outright —
-    PERF.md §7).  Primary intersection, normals, secondary directions and
-    all epsilon tests stay f32.  Nearest-occluder shadow sweeps of
-    transparent scenes stay f32 too (ordering is distance-precision
-    sensitive)."""
+    ``want_trans=False`` (static): no scene material is transparent, so
+    shadow sweeps run in any-hit mode (no nearest-occluder ordering — see
+    ``intersect_all``)."""
+    all_opaque = not want_trans
     f32 = jnp.float32
-    bf = jnp.bfloat16
 
     def full(x):
         return jnp.full(shape, x, f32)
 
     board_x, board_z = misc_ref[3], misc_ref[5]
     board_half, board_sq = misc_ref[6], misc_ref[7]
-
-    def _recip(den):
-        """den is pre-guarded nonzero.  Mosaic's f32 divide is multi-slot;
-        the HW reciprocal + one Newton step is ~1-ulp and much cheaper."""
-        return fastmath.recip(den, fast_recip)
 
     def intersect_all(ox, oy, oz, vx, vy, vz, excl, ray_ok,
                       carry_transp=False, any_hit=False):
@@ -256,11 +247,7 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
         ``any_hit``: return only an occluded mask (f32 0/1 plane) — no
         distance ordering, no winner tracking.  Valid ONLY for all-opaque
         scenes, where "lit = nearest occluder missing or transparent"
-        (MySdlApplication.cpp:1221) degenerates to "lit = no occluder":
-        with no transparent material the nearest-occluder identity cannot
-        change the answer.  Saves the per-primitive dist/argmin selects of
-        the shadow sweeps.  (The accumulator is an f32 plane, not bool —
-        i1 vector fori_loop carries are Mosaic-illegal.)"""
+        (MySdlApplication.cpp:1221) degenerates to "lit = no occluder"."""
         vlen2 = vx * vx + vy * vy + vz * vz
         ok = jnp.logical_and(ray_ok, vlen2 > 0.0)
         inv_vlen = jax.lax.rsqrt(jnp.where(ok, vlen2, 1.0))
@@ -274,7 +261,8 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
             ndv = nx * vx + ny * vy + nz * vz
             plane_ok = jnp.abs(ndv) >= small
             ndo = nx * ox + ny * oy + nz * oz
-            mm = (tri_ref[i, 16] - ndo) * _recip(jnp.where(plane_ok, ndv, 1.0))
+            mm = (tri_ref[i, 16] - ndo) * (
+                1.0 / jnp.where(plane_ok, ndv, 1.0))
             # barycentric via precomputed edge dots
             px = ox + mm * vx - tri_ref[i, 0]
             py = oy + mm * vy - tri_ref[i, 1]
@@ -307,76 +295,13 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
             return hit, s
 
         if any_hit:
-            if bf16_shading:
-                # bf16 sweep arithmetic (f32 upcasts at compares/recip/sqrt
-                # — Mosaic has no bf16 cmp/rsqrt, and no SCALAR-core bf16
-                # arithmetic at all: SMEM scalars stay f32 and are
-                # splat-cast to bf16 planes only where they meet vector
-                # operands).  Shadow occlusion is a BOOLEAN outcome, so
-                # bf16 only moves decision boundaries (documented looser
-                # parity, RenderConfig.bf16_shading).
-                def cb(x):
-                    return jnp.asarray(x).astype(bf)
+            def tri_body_any(i, acc):
+                hit, _ = tri_hit(i)
+                return jnp.where(hit, 1.0, acc)
 
-                def cbs(x):  # f32 SMEM scalar -> splatted bf16 plane
-                    return jnp.broadcast_to(x, shape).astype(bf)
-
-                def cf(x):
-                    return x.astype(f32)
-
-                oxb, oyb, ozb = cb(ox), cb(oy), cb(oz)
-                vxb, vyb, vzb = cb(vx), cb(vy), cb(vz)
-                uxb, uyb, uzb = cb(ux), cb(uy), cb(uz)
-
-                def tri_body_any(i, acc):
-                    nxs, nys, nzs = (cbs(tri_ref[i, 3]), cbs(tri_ref[i, 4]),
-                                     cbs(tri_ref[i, 5]))
-                    ndv = cf(nxs * vxb + nys * vyb + nzs * vzb)
-                    plane_ok = jnp.abs(ndv) >= small
-                    ndo = cf(nxs * oxb + nys * oyb + nzs * ozb)
-                    mm = ((tri_ref[i, 16] - ndo)
-                          * _recip(jnp.where(plane_ok, ndv, 1.0)))
-                    mmb = cb(mm)
-                    px = oxb + mmb * vxb - cbs(tri_ref[i, 0])
-                    py = oyb + mmb * vyb - cbs(tri_ref[i, 1])
-                    pz = ozb + mmb * vzb - cbs(tri_ref[i, 2])
-                    wu = px * cbs(tri_ref[i, 6]) + py * cbs(tri_ref[i, 7]) \
-                        + pz * cbs(tri_ref[i, 8])
-                    wv = px * cbs(tri_ref[i, 9]) + py * cbs(tri_ref[i, 10]) \
-                        + pz * cbs(tri_ref[i, 11])
-                    uv, uu, vv_ = (cbs(tri_ref[i, 12]), cbs(tri_ref[i, 13]),
-                                   cbs(tri_ref[i, 14]))
-                    inv_den = cbs(1.0 / tri_ref[i, 15])
-                    sb = cf((uv * wv - vv_ * wu) * inv_den)
-                    tb = cf((uv * wu - uu * wv) * inv_den)
-                    hit = (plane_ok & (mm >= small) & (sb >= 0.0)
-                           & (tb >= 0.0) & (sb + tb <= 1.0) & ok
-                           & (excl != i.astype(f32))
-                           & (tri_ref[i, 19] > 0.5))
-                    return jnp.where(hit, 1.0, acc)
-
-                def sph_body_any(i, acc):
-                    dx = cbs(sph_ref[i, 0]) - oxb
-                    dy = cbs(sph_ref[i, 1]) - oyb
-                    dz = cbs(sph_ref[i, 2]) - ozb
-                    ud = cf(uxb * dx + uyb * dy + uzb * dz)
-                    rr = sph_ref[i, 3] * sph_ref[i, 3]   # f32 scalar core
-                    disc = ud * ud - cf(dx * dx + dy * dy + dz * dz) + rr
-                    disc_ok = disc > 0.0
-                    s = ud - jnp.sqrt(jnp.where(disc_ok, disc, 1.0)) \
-                        * jnp.where(disc_ok, 1.0, 0.0)
-                    hit = ((disc >= 0.0) & (s >= small) & ok
-                           & (excl != (i + nt).astype(f32))
-                           & (sph_ref[i, 5] > 0.5))
-                    return jnp.where(hit, 1.0, acc)
-            else:
-                def tri_body_any(i, acc):
-                    hit, _ = tri_hit(i)
-                    return jnp.where(hit, 1.0, acc)
-
-                def sph_body_any(i, acc):
-                    hit, _ = sph_hit(i)
-                    return jnp.where(hit, 1.0, acc)
+            def sph_body_any(i, acc):
+                hit, _ = sph_hit(i)
+                return jnp.where(hit, 1.0, acc)
 
             occ = _sweep_loop(nt, tri_body_any, full(0.0))
             occ = _sweep_loop(ns, sph_body_any, occ)
@@ -447,13 +372,11 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
 
         mid = jnp.where(is_tri, tmid, smid)
         # checkerboard override: square parity with C truncation (:1101-1111).
-        # The square-size divide becomes one exact scalar reciprocal (scalar
-        # core, free) + a vector mul instead of two vector divides, and the
-        # parity test is trunc(s/2)*2 == s (s is an exact small integer in
-        # f32) instead of mod — mod lowers to divide+trunc+mul+sub (~10 VPU
-        # slots measured) where this is mul+trunc+mul+cmp; same boolean for
-        # every integral s, including C's negative-remainder cases
-        # (-3 % 2 == -1 and trunc(-1.5)*2 == -3 are both "odd").
+        # The square-size divide becomes one exact scalar reciprocal and a
+        # multiply, and the parity test is trunc(s/2)*2 == s (s is an exact
+        # small integer in f32) instead of mod; same boolean for every
+        # integral s, including C's negative-remainder cases (-3 % 2 == -1
+        # and trunc(-1.5)*2 == -3 are both "odd").
         inv_sq = 1.0 / board_sq
         fx = jnp.trunc((px - board_x + board_half) * inv_sq)
         fz = jnp.trunc((pz - board_z + board_half) * inv_sq)
@@ -470,12 +393,8 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
         (amb3, dif3, spe3, trn3, rho, take_trans, refl_ok)."""
         def mat_attr(j, c):
             sel = mid == j.astype(f32)
-            out = []
-            for k in range(13):  # amb3 dif3 spe3 trn3 rho
-                out.append(jnp.where(sel, mat_ref[j, k], c[k]))
-            out.append(jnp.where(sel, mat_ref[j, 13], c[13]))  # take_trans
-            out.append(jnp.where(sel, mat_ref[j, 14], c[14]))  # refl_ok
-            return tuple(out)
+            return tuple(jnp.where(sel, mat_ref[j, k], c[k])
+                         for k in range(15))
 
         return _sweep_loop(m, mat_attr, (full(0.0),) * 15)
 
@@ -483,9 +402,9 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
         """Reflected + transmitted (Snell, TIR-guarded) unit-scale dirs.
 
         ``want_trans=False`` (static): the scene has no transmitting
-        material, so the Snell branch (sqrt + ~15 VPU ops) is skipped and
-        zero transmitted dirs are returned — bit-identical output, since
-        the chain's child select never takes them."""
+        material, so the Snell branch is skipped and zero transmitted dirs
+        are returned — bit-identical output, since the chain's child select
+        never takes them."""
         cosi = ux * nx + uy * ny + uz * nz
         rx = ux - 2.0 * cosi * nx
         ry = uy - 2.0 * cosi * ny
@@ -504,12 +423,13 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
         return rx, ry, rz, tx, ty, tz
 
     def shade(px, py, pz, nx, ny, nz, ux, uy, uz, rx, ry, rz, mats,
-              bi, hitm, thr_r, thr_g, thr_b, col_r, col_g, col_b,
-              lit_hook=None):
+              bi, hitm, thr_r, thr_g, thr_b, col_r, col_g, col_b):
         """Per-light shadow sweep + Phong accumulation (MySdlApplication.cpp
-        :1213-1228).  ``lit_hook(li, lit)`` captures shadow residuals."""
+        :1213-1228).  Returns the new colour planes and the per-light lit
+        masks (the shadow residuals)."""
         (amb_r, amb_g, amb_b, dif_r, dif_g, dif_b, spe_r, spe_g, spe_b,
          _trn_r, _trn_g, _trn_b, _rho, _take, _refl) = mats
+        lits = []
         for li in range(nl):
             lx, ly, lz = light_ref[li, 0], light_ref[li, 1], light_ref[li, 2]
             lr, lg, lb = light_ref[li, 3], light_ref[li, 4], light_ref[li, 5]
@@ -528,8 +448,7 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
                 sd, occ_transp, _sux, _suy, _suz, _svlen = intersect_all(
                     px, py, pz, svx, svy, svz, bi, hitm, carry_transp=True)
                 lit = jnp.logical_or(sd >= BIG, occ_transp > 0.5)
-            if lit_hook is not None:
-                lit_hook(li, lit)
+            lits.append(lit)
 
             d2 = svx * svx + svy * svy + svz * svz
             att = atten / (atten + d2)
@@ -537,32 +456,14 @@ def _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref, shape,
             ndots = jnp.abs(nx * svx + ny * svy + nz * svz) * inv_sl
             udotr = jnp.abs(ux * rx + uy * ry + uz * rz)
             w = jnp.where(jnp.logical_and(lit, hitm), att, 0.0)
-            if bf16_shading:
-                # Phong blend in bf16 (geometry dots above stay f32); the
-                # accumulators stay f32 so S-sample sums don't drift.
-                # Light-color SMEM scalars fold into w on the f32 vector
-                # path first (no scalar-core bf16 arithmetic exists).
-                def cb(x):
-                    return jnp.asarray(x).astype(bf)
+            col_r += (thr_r * w * (amb_r + ndots * dif_r
+                                   + udotr * spe_r) * lr)
+            col_g += (thr_g * w * (amb_g + ndots * dif_g
+                                   + udotr * spe_g) * lg)
+            col_b += (thr_b * w * (amb_b + ndots * dif_b
+                                   + udotr * spe_b) * lb)
+        return col_r, col_g, col_b, lits
 
-                nb, ub = cb(ndots), cb(udotr)
-                wr, wg, wb_ = cb(w * lr), cb(w * lg), cb(w * lb)
-                col_r += (cb(thr_r) * wr * (cb(amb_r) + nb * cb(dif_r)
-                          + ub * cb(spe_r))).astype(f32)
-                col_g += (cb(thr_g) * wg * (cb(amb_g) + nb * cb(dif_g)
-                          + ub * cb(spe_g))).astype(f32)
-                col_b += (cb(thr_b) * wb_ * (cb(amb_b) + nb * cb(dif_b)
-                          + ub * cb(spe_b))).astype(f32)
-            else:
-                col_r += (thr_r * w * (amb_r + ndots * dif_r
-                                       + udotr * spe_r) * lr)
-                col_g += (thr_g * w * (amb_g + ndots * dif_g
-                                       + udotr * spe_g) * lg)
-                col_b += (thr_b * w * (amb_b + ndots * dif_b
-                                       + udotr * spe_b) * lb)
-        return col_r, col_g, col_b
-
-    import types
     return types.SimpleNamespace(
         full=full, intersect_all=intersect_all, hit_attrs=hit_attrs,
         mat_attrs=mat_attrs, secondary_dirs=secondary_dirs, shade=shade)
@@ -573,8 +474,7 @@ def pack_widths(nt: int, ns: int, m: int, nl: int):
     ``(bi+1) + mid*BW_BI + lit_bits*BW_BI*BW_MID`` exactly (all fields are
     small integers; widths are powers of two so the unpack divides are exact
     multiplies).  Raises if the scene exceeds the 2^24 f32-exact-integer
-    budget (would need >2 packed planes per level — no reference scene
-    comes close)."""
+    budget."""
     bw_bi = 1
     while bw_bi < nt + ns + 2:
         bw_bi *= 2
@@ -588,73 +488,47 @@ def pack_widths(nt: int, ns: int, m: int, nl: int):
     return float(bw_bi), float(bw_mid)
 
 
-def default_blocks(scene: FlatScene, phase: str = "fwd",
-                   depth: int = None):
-    """Measured per-workload tile-shape defaults (scripts/tile_sweep.py and
-    the round-5 config-5 block×mode sweeps, PERF.md §6/§8).  The FORWARD
-    kernels win at 8×512 everywhere (with the sweeps unrolled, small rows
-    maximize Mosaic scheduling freedom).  The two-phase BACKWARD is
-    entity-count sensitive: 16×256 for small scenes (≤32 primitives — all
-    the reference's own scenes), 64×256 for large sweep counts (BASELINE
-    config 5's 64 spheres: the adjoint's per-entity gather transpose and
-    8-chunk sweep bookkeeping amortize over bigger tiles — 95 → 59 ms at
-    2048² d3 at 64×512; 128×512 and up fail to compile, VMEM).  Deeper
-    chains multiply the adjoint's live planes, so the large-scene backward
-    steps down to 64×256 past depth 3 (compile-safety margin).  The
-    single-dispatch FUSED fwd+bwd kernel shares one block and follows its
-    dominant phase: 8×512 small, 64×256 large (70.7 vs 95.4 ms at
-    config 5).  ``phase``: "fwd" (forward-only kernels), "bwd" (phase 2
-    of the packed two-phase path), "fused" (single-dispatch fwd+bwd).
-    ``depth``: the bounce depth (None = assume shallow)."""
-    n = scene.num_spheres + scene.num_triangles
-    if phase == "bwd":
-        if n > _SWEEP_FULL_MAX:
-            return (64, 512) if (depth is None or depth <= 3) else (64, 256)
-        return (16, 256)
-    if phase == "fused" and n > _SWEEP_FULL_MAX:
-        return (64, 256)
-    return (8, 512)
+def pack_level(level, pack):
+    """One bounce level's residuals (``_chain_forward``'s record) -> the
+    packed plane."""
+    bw_bi, bw_mid = pack
+    pk = (level["bi"] + 1.0) + level["mid"] * bw_bi
+    for li, lit in enumerate(level["lits"]):
+        pk += jnp.where(lit, 1.0, 0.0) * (bw_bi * bw_mid * float(1 << li))
+    return pk
 
 
-def _resolve_blocks(scene, block_h, block_w, phase="fwd", depth=None):
-    """None → the scene's measured default; ints pass through."""
-    if block_h is None or block_w is None:
-        dh, dw = default_blocks(scene, phase, depth)
-        return (dh if block_h is None else block_h,
-                dw if block_w is None else block_w)
-    return block_h, block_w
+def unpack_level(pk, nl: int, pack):
+    """Inverse of ``pack_level``: (bi, mid, [lit_0 .. lit_{nl-1}]) with the
+    lit flags as 0/1 f32 planes.  Exact: every field is a small integer and
+    every width a power of two."""
+    bw_bi, bw_mid = pack
+    hi = jnp.trunc(pk * (1.0 / (bw_bi * bw_mid)))     # lit bit field
+    rem = pk - hi * (bw_bi * bw_mid)
+    mid = jnp.trunc(rem * (1.0 / bw_bi))
+    biq = rem - mid * bw_bi
+    lits = []
+    for _ in range(nl):
+        nxt = jnp.trunc(hi * 0.5)
+        lits.append(hi - nxt * 2.0)
+        hi = nxt
+    return biq - 1.0, mid, lits
 
 
 def _chain_forward(ops, eye, vx0, vy0, vz0, *, nl: int, depth: int,
-                   want_trans: bool, res_refs=(), pack=None):
-    """The chain forward as a fori_loop over bounce levels, returning the
-    accumulated (col_r, col_g, col_b) planes.  When ``res_refs`` is given
-    (bi, mid, lit_0..lit_{nl-1} refs of shape [depth+1, BH, BW] — output refs
-    of the residual forward or VMEM scratch of the fused fwd+bwd kernel) the
-    fixed-topology residuals are written per level.  Six MORE refs
-    (ox oy oz vx vy vz) may follow the lit refs: each level's INPUT ray is
-    then also recorded, letting the fused adjoint skip its own primal
-    ray-chain phase entirely (kernels/adjoint_fused.py, ``ov_at``).
-
-    ``pack=(bw_bi, bw_mid)``: res_refs is instead ONE ref [depth+1, BH, BW]
-    and each level's (bi, mid, lit_0..lit_{nl-1}) residuals are packed into
-    a single integer-exact f32 plane — one in-loop store per level instead
-    of 2+nl.  The in-loop residual stores, not their layout or HBM traffic,
-    are the residual forward's measured overhead (~0.15 ms/level at 1024²,
-    PERF.md §2), so packing cuts it ~(2+nl)x."""
+                   want_trans: bool, record: bool = False):
+    """The chain forward, bounce levels unrolled.  Returns
+    ``((col_r, col_g, col_b), levels)``: with ``record`` each level's
+    fixed-topology residuals — dict(bi (-1 on a miss), mid, lits) — else
+    ``None``."""
     full = ops.full
-    with_residuals = bool(res_refs)
-    ov_refs = (res_refs[2 + nl:]
-               if (with_residuals and pack is None) else ())
-
-    # ---- per-ray state (the chain carry); the bounce-level loop is a
-    # fori_loop so the Mosaic program stays small regardless of depth ----
-    def level_body(_level, carry):
-        (ox, oy, oz, vx, vy, vz, thr_r, thr_g, thr_b,
-         col_r, col_g, col_b, excl, alive_f) = carry
-        if ov_refs:
-            for ref, plane in zip(ov_refs, (ox, oy, oz, vx, vy, vz)):
-                ref[_level] = plane
+    ox, oy, oz = full(eye[0]), full(eye[1]), full(eye[2])
+    vx, vy, vz = vx0, vy0, vz0
+    thr_r = thr_g = thr_b = full(1.0)
+    col_r = col_g = col_b = full(0.0)
+    excl, alive_f = full(-1.0), full(1.0)
+    levels = [] if record else None
+    for _level in range(depth + 1):
         alive = alive_f > 0.5
         bd, bi, ux, uy, uz, _vlen = ops.intersect_all(ox, oy, oz, vx, vy, vz,
                                                       excl, alive)
@@ -662,10 +536,6 @@ def _chain_forward(ops, eye, vx0, vy0, vz0, *, nl: int, depth: int,
 
         px, py, pz, nx, ny, nz, mid = ops.hit_attrs(bd, bi, hitm,
                                                     ox, oy, oz, ux, uy, uz)
-        if with_residuals and pack is None:
-            res_refs[0][_level] = jnp.where(hitm, bi, -1.0)
-            res_refs[1][_level] = mid
-
         mats = ops.mat_attrs(mid)
         (_, _, _, _, _, _, _, _, _,
          trn_r, trn_g, trn_b, rho, take_trans_f, refl_ok_f) = mats
@@ -673,26 +543,12 @@ def _chain_forward(ops, eye, vx0, vy0, vz0, *, nl: int, depth: int,
         rx, ry, rz, tx, ty, tz = ops.secondary_dirs(ux, uy, uz, nx, ny, nz,
                                                     rho,
                                                     want_trans=want_trans)
-
-        lit_planes = []
-
-        def lit_hook(li, lit):
-            if pack is not None:
-                lit_planes.append(jnp.where(lit, 1.0, 0.0))
-            elif with_residuals:
-                res_refs[2 + li][_level] = jnp.where(lit, 1.0, 0.0)
-
-        col_r, col_g, col_b = ops.shade(
+        col_r, col_g, col_b, lits = ops.shade(
             px, py, pz, nx, ny, nz, ux, uy, uz, rx, ry, rz, mats,
-            bi, hitm, thr_r, thr_g, thr_b, col_r, col_g, col_b,
-            lit_hook=lit_hook)
-
-        if pack is not None:
-            bw_bi, bw_mid = pack
-            pk = (jnp.where(hitm, bi, -1.0) + 1.0) + mid * bw_bi
-            for li, lf in enumerate(lit_planes):
-                pk += lf * (bw_bi * bw_mid * float(1 << li))
-            res_refs[0][_level] = pk
+            bi, hitm, thr_r, thr_g, thr_b, col_r, col_g, col_b)
+        if record:
+            levels.append(dict(bi=jnp.where(hitm, bi, -1.0), mid=mid,
+                               lits=lits))
 
         # ---- child ray selection (chain-exact) ----
         take_t = take_trans_f > 0.5
@@ -707,271 +563,126 @@ def _chain_forward(ops, eye, vx0, vy0, vz0, *, nl: int, depth: int,
                                        1.0, 0.0),
                              jnp.where(refl_ok_f > 0.5, 1.0, 0.0))
         alive_f = jnp.where(jnp.logical_and(hitm, branch_f > 0.5), 1.0, 0.0)
-        return (px, py, pz, nvx, nvy, nvz, thr_r, thr_g, thr_b,
-                col_r, col_g, col_b, bi, alive_f)
-
-    init = (full(eye[0]), full(eye[1]), full(eye[2]),
-            vx0, vy0, vz0,
-            full(1.0), full(1.0), full(1.0),
-            full(0.0), full(0.0), full(0.0),
-            full(-1.0), full(1.0))
-    if os.environ.get("RTFS_LEVEL_UNROLL", "1") == "1":
-        # DEFAULT since round 5: unrolled bounce levels (constant
-        # residual-store indices, straight-line level code).  Measured
-        # wins on v5e: plain forward 1.98 -> 1.86 ms, packed two-phase
-        # fwd+bwd 2.65 -> 2.58 ms at 1024^2 d3.  One program shape for
-        # every chain forward (plain/packed/residual/fused) keeps the
-        # kernels bit-identical to each other; vs the old fori_loop
-        # default the fma reassociation flips ~0.5% of decision-boundary
-        # pixels (goldens regenerated with the flip —
-        # tests/goldens, scripts/make_goldens.py).  RTFS_LEVEL_UNROLL=0
-        # restores the loop (smaller Mosaic program at high depth).
-        out = init
-        for lv in range(depth + 1):
-            out = level_body(lv, out)   # Python int: static store indices
-    else:
-        out = jax.lax.fori_loop(0, depth + 1, level_body, init)
-    return out[9], out[10], out[11]
+        ox, oy, oz, vx, vy, vz, excl = px, py, pz, nvx, nvy, nvz, bi
+    return (col_r, col_g, col_b), levels
 
 
-def _render_tile_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                        vx_ref, vy_ref, vz_ref, r_ref, g_ref, b_ref,
-                        *res_refs,
-                        ns: int, nt: int, m: int, nl: int, depth: int,
-                        small: float, atten: float,
-                        white_id: int, black_id: int,
-                        with_residuals: bool = False,
-                        want_trans: bool = True,
-                        fast_recip: bool = True,
-                        bf16_shading: bool = False):
-    # res_refs (when with_residuals): bi_ref, mid_ref [depth+1, BH, BW] and
-    # one lit_ref [depth+1, BH, BW] per light — the fixed-topology residuals
-    # consumed by the replay adjoint (kernels/adjoint.py).
-    shape = vx_ref.shape
-    ops = _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                         shape, ns=ns, nt=nt, m=m, nl=nl, small=small,
-                         atten=atten, white_id=white_id, black_id=black_id,
-                         fast_recip=fast_recip, all_opaque=not want_trans,
-                         bf16_shading=bf16_shading)
-    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
-    col_r, col_g, col_b = _chain_forward(
-        ops, eye, vx_ref[:], vy_ref[:], vz_ref[:], nl=nl, depth=depth,
-        want_trans=want_trans, res_refs=res_refs if with_residuals else ())
-    r_ref[:] = col_r
-    g_ref[:] = col_g
-    b_ref[:] = col_b
-
-
-def _render_tile_packed_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                               vx_ref, vy_ref, vz_ref,
-                               r_ref, g_ref, b_ref, pk_ref,
-                               *, ns: int, nt: int, m: int, nl: int,
-                               depth: int, small: float, atten: float,
-                               white_id: int, black_id: int,
-                               want_trans: bool = True,
-                               fast_recip: bool = True,
-                               bf16_shading: bool = False,
-                               pack=(512.0, 128.0)):
-    """Chain forward emitting the image AND the single-plane packed
-    residuals (``pack_widths``) — phase 1 of the packed two-phase
-    fwd+bwd (kernels/adjoint_fused.py::twophase_loss_grads_pallas)."""
-    shape = vx_ref.shape
-    ops = _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                         shape, ns=ns, nt=nt, m=m, nl=nl, small=small,
-                         atten=atten, white_id=white_id, black_id=black_id,
-                         fast_recip=fast_recip, all_opaque=not want_trans,
-                         bf16_shading=bf16_shading)
-    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
-    col_r, col_g, col_b = _chain_forward(
-        ops, eye, vx_ref[:], vy_ref[:], vz_ref[:], nl=nl, depth=depth,
-        want_trans=want_trans, res_refs=(pk_ref,), pack=pack)
-    r_ref[:] = col_r
-    g_ref[:] = col_g
-    b_ref[:] = col_b
-
-
-def render_forward_packed(packed, scene, config: RenderConfig,
-                          vx, vy, vz, block_h: int, block_w: int,
-                          interpret: bool, pack):
-    """Phase-1 pallas_call of the packed two-phase path: padded ray planes
-    in, padded (r, g, b, pk) planes out (no unpadding — the planes feed the
-    phase-2 backward kernel directly)."""
-    depth = config.max_depth
-    nl = scene.num_lights
-    ph, pw = vx.shape
-    kernel = functools.partial(
-        _render_tile_packed_kernel,
+def kernel_statics(packed, scene: FlatScene, config: RenderConfig):
+    """Static keyword arguments shared by the forward and backward kernels.
+    ``nt`` is the *packed* triangle row count (sphere ids are offset by
+    it)."""
+    return dict(
         ns=packed["sph"].shape[0], nt=packed["tri"].shape[0],
-        m=scene.num_materials, nl=nl, depth=depth,
+        m=scene.num_materials, nl=scene.num_lights, depth=config.max_depth,
         small=config.small_number, atten=config.attenuation_factor,
         white_id=scene.checker_mats[0], black_id=scene.checker_mats[1],
-        want_trans=bool(scene.has_transmission),
-        fast_recip=not interpret,
-        bf16_shading=config.bf16_shading, pack=pack)
-    grid = (ph // block_h, pw // block_w)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    tile = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j),
-                        memory_space=pltpu.VMEM)
-    res_tile = pl.BlockSpec((depth + 1, block_h, block_w),
-                            lambda i, j: (0, i, j),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem] * 5 + [tile] * 3,
-        out_specs=[tile] * 3 + [res_tile],
-        out_shape=[jax.ShapeDtypeStruct((ph, pw), jnp.float32)] * 3
-                  + [jax.ShapeDtypeStruct((depth + 1, ph, pw), jnp.float32)],
-        interpret=interpret,
-        compiler_params=None if interpret else kernel_compiler_params(),
-    )(packed["sph"], packed["tri"], packed["mat"], packed["light"],
-      packed["misc"], vx, vy, vz)
+        # no transmitting material -> the Snell branch is statically skipped
+        # (bit-identical: the child select never takes transmitted dirs)
+        want_trans=bool(scene.has_transmission))
 
 
-def _tree_forward(ops, eye, vx0, vy0, vz0, *, nl: int, depth: int,
-                  want_trans: bool, res_refs=()):
-    """Full binary bounce *tree* — the literal ``rayTraceRay`` recursion
-    (MySdlApplication.cpp:1230-1248): at every hit a transmitted child
-    weighted by the material transparency T AND a reflected child weighted
-    by the opacity 1-T, unrolled statically in preorder (2^(depth+1)-1 node
-    visits).  Returns the accumulated (col_r, col_g, col_b).  When
-    ``res_refs`` is given (bi, mid, lit_0.. refs of shape [K, BH, BW] with
-    K preorder nodes — output refs of the residual forward or VMEM scratch
-    of the fused tree fwd+bwd kernel) the fixed-topology residuals are
-    written per preorder node, the indexing the tree replay adjoint
-    consumes (kernels/adjoint.py::replay_render_tree and the in-kernel
-    adjoint_fused tree body)."""
-    full = ops.full
-    with_residuals = bool(res_refs)
-    eye_x, eye_y, eye_z = eye
-    preorder = [0]  # next preorder node index (static during the unroll)
-
-    def node(ox, oy, oz, vx, vy, vz, thr_r, thr_g, thr_b, excl, alive_f,
-             level, col):
-        idx = preorder[0]
-        preorder[0] += 1
-        col_r, col_g, col_b = col
-        alive = alive_f > 0.5
-        bd, bi, ux, uy, uz, _vlen = ops.intersect_all(ox, oy, oz, vx, vy, vz,
-                                                      excl, alive)
-        hitm = jnp.logical_and(bd < BIG, alive)
-        px, py, pz, nx, ny, nz, mid = ops.hit_attrs(bd, bi, hitm,
-                                                    ox, oy, oz, ux, uy, uz)
-        if with_residuals:
-            res_refs[0][idx] = jnp.where(hitm, bi, -1.0)
-            res_refs[1][idx] = mid
-        mats = ops.mat_attrs(mid)
-        (_, _, _, _, _, _, _, _, _,
-         trn_r, trn_g, trn_b, rho, take_trans_f, refl_ok_f) = mats
-        rx, ry, rz, tx, ty, tz = ops.secondary_dirs(ux, uy, uz, nx, ny, nz,
-                                                    rho,
-                                                    want_trans=want_trans)
-
-        def lit_hook(li, lit):
-            if with_residuals:
-                res_refs[2 + li][idx] = jnp.where(lit, 1.0, 0.0)
-
-        col = ops.shade(px, py, pz, nx, ny, nz, ux, uy, uz, rx, ry, rz, mats,
-                        bi, hitm, thr_r, thr_g, thr_b, col_r, col_g, col_b,
-                        lit_hook=lit_hook)
-        if level == depth:
-            return col
-        hit_f = jnp.where(hitm, 1.0, 0.0)
-        # transmitted child: traced when T != 0 and |T| > SMALL (:1238),
-        # contribution weighted by T (take_trans folds both conditions)
-        take_f = take_trans_f * hit_f
-        col = node(px, py, pz, tx * take_f, ty * take_f, tz * take_f,
-                   thr_r * trn_r * take_f, thr_g * trn_g * take_f,
-                   thr_b * trn_b * take_f, bi, hit_f, level + 1, col)
-        # reflected child: traced when opacity != 0 (:1243), weight 1-T
-        refl_f = refl_ok_f * hit_f
-        col = node(px, py, pz, rx * refl_f, ry * refl_f, rz * refl_f,
-                   thr_r * (1.0 - trn_r) * refl_f,
-                   thr_g * (1.0 - trn_g) * refl_f,
-                   thr_b * (1.0 - trn_b) * refl_f, bi, hit_f, level + 1, col)
-        return col
-
-    return node(full(eye_x), full(eye_y), full(eye_z),
-                vx0, vy0, vz0,
-                full(1.0), full(1.0), full(1.0),
-                full(-1.0), full(1.0), 0,
-                (full(0.0), full(0.0), full(0.0)))
-
-
-def _render_tile_tree_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                             vx_ref, vy_ref, vz_ref, r_ref, g_ref, b_ref,
-                             *res_refs,
-                             ns: int, nt: int, m: int, nl: int, depth: int,
-                             small: float, atten: float,
-                             white_id: int, black_id: int,
-                             with_residuals: bool = False,
-                             want_trans: bool = True,
-                             fast_recip: bool = True,
-                             bf16_shading: bool = False):
-    """Tree-forward tile kernel (fractional-transparency scenes; chain-exact
-    scenes take _render_tile_kernel).  Matches core/renderer.py's
-    ``render_rays_tree`` semantics exactly."""
-    shape = vx_ref.shape
+def _render_kernel(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
+                   vx_ref, vy_ref, vz_ref, r_ref, g_ref, b_ref, *pk_ref,
+                   pack=None, **st):
+    """Chain forward of one pixel block.  With ``pack`` it also stores each
+    level's packed residual plane into ``pk_ref`` [depth+1, block]."""
     ops = _make_tile_ops(sph_ref, tri_ref, mat_ref, light_ref, misc_ref,
-                         shape, ns=ns, nt=nt, m=m, nl=nl, small=small,
-                         atten=atten, white_id=white_id, black_id=black_id,
-                         fast_recip=fast_recip, all_opaque=not want_trans,
-                         bf16_shading=bf16_shading)
-    col = _tree_forward(ops, (misc_ref[0], misc_ref[1], misc_ref[2]),
-                        vx_ref[:], vy_ref[:], vz_ref[:], nl=nl, depth=depth,
-                        want_trans=want_trans,
-                        res_refs=res_refs if with_residuals else ())
-    r_ref[:] = col[0]
-    g_ref[:] = col[1]
-    b_ref[:] = col[2]
+                         vx_ref.shape, **st)
+    eye = (misc_ref[0], misc_ref[1], misc_ref[2])
+    (col_r, col_g, col_b), levels = _chain_forward(
+        ops, eye, vx_ref[...], vy_ref[...], vz_ref[...], nl=st["nl"],
+        depth=st["depth"], want_trans=st["want_trans"],
+        record=pack is not None)
+    r_ref[...] = col_r
+    g_ref[...] = col_g
+    b_ref[...] = col_b
+    if pack is not None:
+        for lv, level in enumerate(levels):
+            pk_ref[0][lv, :] = pack_level(level, pack)
 
 
-def _pad_to(x, mult, axis):
-    size = x.shape[axis]
-    pad = (-size) % mult
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths)
+def pad_plane(x, mult: int):
+    """Flatten ``x`` and zero-pad it to a multiple of ``mult``."""
+    x = x.reshape(-1)
+    pad = (-x.shape[0]) % mult
+    return jnp.pad(x, (0, pad)) if pad else x
+
+
+def render_forward(packed, scene: FlatScene, config: RenderConfig,
+                   vx, vy, vz, *, interpret: bool, pack=None, block=None):
+    """Forward pallas_call over padded flat ray planes [P]: returns the
+    padded (r, g, b) planes, plus the packed residual planes
+    [depth+1, P] when ``pack`` is given.  ``block``: (pixels, warps) per
+    program, default ``FWD_BLOCK``."""
+    bsize, warps = block or FWD_BLOCK
+    (p,) = vx.shape
+    depth = config.max_depth
+    kernel = functools.partial(_render_kernel, pack=pack,
+                               **kernel_statics(packed, scene, config))
+    tabs = tables(packed)
+    plane = plane_spec(bsize)
+    out_specs = [plane] * 3
+    out_shape = [jax.ShapeDtypeStruct((p,), jnp.float32)] * 3
+    if pack is not None:
+        out_specs.append(pl.BlockSpec((depth + 1, bsize), lambda i: (0, i)))
+        out_shape.append(jax.ShapeDtypeStruct((depth + 1, p), jnp.float32))
+    return triton_call(
+        kernel, grid=(p // bsize,),
+        in_specs=[whole(t) for t in tabs] + [plane] * 3,
+        out_specs=out_specs, out_shape=out_shape, interpret=interpret,
+        num_warps=warps,
+        name="render_fwd_packed" if pack is not None else "render_fwd",
+    )(*tabs, vx, vy, vz)
+
+
+def ray_planes(camera: Camera, pts, mult: int):
+    """Primary-ray direction planes (vx, vy, vz), flat and padded to a
+    multiple of ``mult`` (padding rays have zero direction: they hit
+    nothing)."""
+    _, v = primary_rays(camera, pts)
+    return tuple(pad_plane(v[:, k], mult) for k in range(3))
+
+
+def _as_camera(camera, config):
+    from ..config import CameraConfig
+    if isinstance(camera, CameraConfig):
+        camera = Camera.from_config(camera, config.width, config.height)
+    return camera
 
 
 def render_image_pallas(scene: FlatScene, camera, config: RenderConfig,
-                        key=None, block_h: int = None, block_w: int = None,
-                        interpret: bool = None, pts=None):
-    """Full-frame Pallas render -> [H,W,3] (j=0 bottom, like the core).
+                        key=None, interpret: Optional[bool] = None,
+                        pts=None):
+    """Full-frame render -> [H,W,3] (j=0 bottom, like the core).
 
-    ``interpret``: run the kernel in the Pallas interpreter (for CPU tests);
-    default auto-detects a non-TPU backend.
+    ``interpret``: run the kernel in the Pallas interpreter (how the CPU
+    tests run it); otherwise the kernel is compiled for the GPU
+    (``use_interpret``).
 
     ``pts``: optional pre-computed screen points [H*W, 3].  Sharded callers
     (parallel/shard.py) pass the points of their row band together with a
     config whose ``height`` is the band height.
 
-    Scenes with fractional transparency (not chain-exact) route to the
-    bounce-tree kernel automatically; cost grows as 2^depth."""
-    tree = not scene.chain_exact
-    from ..config import CameraConfig
-    if isinstance(camera, CameraConfig):
-        camera = Camera.from_config(camera, config.width, config.height)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    # the "fwd" policy is scene-independent (8x512 everywhere) — no need
-    # to compact just to resolve
-    block_h, block_w = _resolve_blocks(scene, block_h, block_w)
-
-    packed = dict(pack_scene(scene))
-    packed["misc"] = packed["misc"].at[0:3].set(
-        camera.eye.astype(jnp.float32))
+    Scenes with fractional transparency (not chain-exact) need the full
+    bounce tree, whose cost grows as 2^depth; they render through the XLA
+    tree renderer (``core.renderer.render_points``)."""
+    camera = _as_camera(camera, config)
     w, h = config.width, config.height
     if pts is None:
         pts = screen_points(camera, w, h)
+    if not scene.chain_exact:
+        from ..core.renderer import render_points
+        return render_points(scene, camera, pts, config,
+                             key=key).reshape(h, w, 3)
+    interpret = use_interpret(interpret)
+    packed = pack_scene_for(scene, camera)
 
     def one_sample(pts_s):
-        img, _ = _call_kernel(packed, scene, camera, config, pts_s,
-                              block_h, block_w, interpret,
-                              with_residuals=False, tree=tree)
-        return img
+        vx, vy, vz = ray_planes(camera, pts_s, PLANE_MULT)
+        r, g, b = render_forward(packed, scene, config, vx, vy, vz,
+                                 interpret=interpret)
+        return jnp.stack([r[:h * w], g[:h * w], b[:h * w]],
+                         -1).reshape(h, w, 3)
 
     use_jitter = config.samples > 1 or config.force_jitter
     if not use_jitter:
@@ -1017,108 +728,41 @@ def render_image_pallas(scene: FlatScene, camera, config: RenderConfig,
     return accum / divisor[..., None]
 
 
-def _pad_img(flat, h, w, block_h, block_w):
-    img = flat.reshape(h, w)
-    img = _pad_to(img, block_h, 0)
-    img = _pad_to(img, block_w, 1)
-    return img
-
-
-def n_tree_nodes(depth: int) -> int:
-    """Preorder node count of the full binary bounce tree."""
-    return 2 ** (depth + 1) - 1
-
-
-def _call_kernel(packed, scene, camera, config, pts, block_h, block_w,
-                 interpret, with_residuals, tree=False):
-    """Invoke the tile kernel over the padded frame.  Returns (img,
-    residuals-or-None); residuals = dict(bi, mid [K,H,W], lit [L,K,H,W])
-    where K = depth+1 for the chain kernel and 2^(depth+1)-1 preorder nodes
-    for the tree kernel."""
-    w, h = config.width, config.height
-    depth = config.max_depth
-    nl = scene.num_lights
-    o, v = primary_rays(camera, pts)
-    vx = _pad_img(v[:, 0], h, w, block_h, block_w)
-    vy = _pad_img(v[:, 1], h, w, block_h, block_w)
-    vz = _pad_img(v[:, 2], h, w, block_h, block_w)
-    ph, pw = vx.shape
-    common = dict(
-        ns=packed["sph"].shape[0], nt=packed["tri"].shape[0],
-        m=scene.num_materials, nl=nl,
-        depth=depth, small=config.small_number,
-        atten=config.attenuation_factor,
-        white_id=scene.checker_mats[0], black_id=scene.checker_mats[1],
-        # no transmitting material -> the Snell branch is statically skipped
-        # (bit-identical: the child select never takes transmitted dirs)
-        want_trans=bool(scene.has_transmission),
-        # pl.reciprocal is TPU-only; interpret mode uses the exact divide
-        fast_recip=not interpret,
-        bf16_shading=config.bf16_shading)
-    if tree:
-        kernel = functools.partial(_render_tile_tree_kernel,
-                                   with_residuals=with_residuals, **common)
-        levels = n_tree_nodes(depth)
-    else:
-        kernel = functools.partial(_render_tile_kernel,
-                                   with_residuals=with_residuals, **common)
-        levels = depth + 1
-    grid = (ph // block_h, pw // block_w)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    tile = pl.BlockSpec((block_h, block_w), lambda i, j: (i, j),
-                        memory_space=pltpu.VMEM)
-    n_res = (2 + nl) if with_residuals else 0
-    res_tile = pl.BlockSpec((levels, block_h, block_w),
-                            lambda i, j: (0, i, j),
-                            memory_space=pltpu.VMEM)
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem] * 5 + [tile] * 3,
-        out_specs=[tile] * 3 + [res_tile] * n_res,
-        out_shape=([jax.ShapeDtypeStruct((ph, pw), jnp.float32)] * 3
-                   + [jax.ShapeDtypeStruct((levels, ph, pw), jnp.float32)]
-                   * n_res),
-        interpret=interpret,
-        compiler_params=None if interpret else kernel_compiler_params(),
-    )(packed["sph"], packed["tri"], packed["mat"], packed["light"],
-      packed["misc"], vx, vy, vz)
-    img = jnp.stack([out[0][:h, :w], out[1][:h, :w], out[2][:h, :w]], -1)
-    if not with_residuals:
-        return img, None
-    bi = out[3][:, :h, :w]
-    mid = out[4][:, :h, :w]
-    if nl:
-        lit = jnp.stack([out[5 + li][:, :h, :w] for li in range(nl)], 0)
-    else:
-        lit = jnp.zeros((0, levels, h, w), jnp.float32)
-    return img, dict(bi=bi, mid=mid, lit=lit)
-
-
-def render_forward_with_residuals(scene: FlatScene, camera, config: RenderConfig,
-                                  block_h: int = None, block_w: int = None,
-                                  interpret: bool = None, pts=None):
-    """Single-sample forward returning (img, fixed-topology residuals) for
-    the replay adjoint (kernels/adjoint.py).
+def render_forward_with_residuals(scene: FlatScene, camera,
+                                  config: RenderConfig,
+                                  interpret: Optional[bool] = None,
+                                  pts=None):
+    """Single-sample chain forward returning ``(img, residuals)`` for the
+    replay adjoint (kernels/adjoint.py): residuals = dict(bi, mid
+    [depth+1,H,W], lit [L,depth+1,H,W]), unpacked from the kernel's packed
+    residual planes.
 
     ``pts``: optional pre-computed screen points [H*W, 3] (sharded row-band
-    callers pass their band's points with ``config.height`` = band height).
-
-    Chain-exact scenes use the chain kernel (residual planes indexed by
-    bounce level); fractional-transparency scenes use the bounce-tree kernel
-    (residual planes indexed by preorder tree node)."""
+    callers pass their band's points with ``config.height`` = band
+    height)."""
     if config.samples != 1 or config.force_jitter:
         raise ValueError("residual forward supports exactly one sample")
-    from ..config import CameraConfig
-    if isinstance(camera, CameraConfig):
-        camera = Camera.from_config(camera, config.width, config.height)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    block_h, block_w = _resolve_blocks(scene, block_h, block_w)
-    packed = dict(pack_scene(scene))
-    packed["misc"] = packed["misc"].at[0:3].set(camera.eye.astype(jnp.float32))
+    if not scene.chain_exact:
+        raise ValueError("the residual forward replays the bounce chain; "
+                         "fractional-transparency scenes differentiate "
+                         "through the XLA tree renderer (diff.fit.l2_loss)")
+    interpret = use_interpret(interpret)
+    camera = _as_camera(camera, config)
+    w, h = config.width, config.height
     if pts is None:
-        pts = screen_points(camera, config.width, config.height)
-    return _call_kernel(packed, scene, camera, config, pts, block_h, block_w,
-                        interpret, with_residuals=True,
-                        tree=not scene.chain_exact)
+        pts = screen_points(camera, w, h)
+    packed = pack_scene_for(scene, camera)
+    nl = scene.num_lights
+    pack = pack_widths(packed["tri"].shape[0], packed["sph"].shape[0],
+                       scene.num_materials, nl)
+    vx, vy, vz = ray_planes(camera, pts, PLANE_MULT)
+    r, g, b, pk = render_forward(packed, scene, config, vx, vy, vz,
+                                 interpret=interpret, pack=pack)
+    img = jnp.stack([r[:h * w], g[:h * w], b[:h * w]], -1).reshape(h, w, 3)
+    bi, mid, lits = unpack_level(pk[:, :h * w], nl, pack)
+    levels = config.max_depth + 1
+    lit = (jnp.stack(lits, 0) if nl
+           else jnp.zeros((0, levels, h * w), jnp.float32))
+    return img, dict(bi=bi.reshape(levels, h, w),
+                     mid=mid.reshape(levels, h, w),
+                     lit=lit.reshape(nl, levels, h, w))

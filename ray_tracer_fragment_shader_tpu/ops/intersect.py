@@ -1,13 +1,14 @@
 """Batched, branchless closest-hit over the flattened scene.
 
-This is the TPU-native re-design of the reference's virtual-dispatch composite
+This is the data-parallel re-design of the reference's virtual-dispatch composite
 traversal (``Shape::intersection`` / ``Triangle::intersection``,
 Hw4/MySdlApplication.cpp:611-823): every ray is tested against *all*
 primitives with masked vector math, then a single argmin picks the nearest
-hit — no data-dependent control flow, everything maps onto the VPU/MXU.
+hit — no data-dependent control flow, everything is fused elementwise
+work and small reductions.
 
-The ray-primitive inner products are phrased as [P,3]x[3,N] matmuls so XLA
-can tile them onto the MXU; everything else is fused elementwise VPU work.
+The ray-primitive inner products are [P,3]x[3,N] contractions written as
+three broadcast FMAs (``_matdot``), not matrix products.
 
 Semantic parity notes (each mirrors a specific reference behaviour):
   * sphere hit iff ``disc >= 0 && s >= eps`` with ``s`` the *near* root only
@@ -30,17 +31,17 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..scene.flat import FlatScene, tri_derived
 from ..utils.jmath import dot3, norm3, safe_div, safe_sqrt
+from ..utils.pytree import pytree_dataclass
 
 # plain Python float (a module-level jnp constant would initialize the JAX
 # backend at import time, defeating later platform selection e.g. --cpu)
 BIG = 3.0e38
 
 
-@struct.dataclass
+@pytree_dataclass
 class Hit:
     valid: Any         # [P] bool — any primitive hit
     prim_id: Any       # [P] i32 — index of the hit primitive in the unified
@@ -59,14 +60,13 @@ class Hit:
 
 
 def _matdot(a, b_t):
-    """[P,3] x [N,3] -> [P,N] inner products as three fused broadcast FMAs
-    on the VPU.
+    """[P,3] x [N,3] -> [P,N] inner products as three fused broadcast FMAs.
 
-    Deliberately NOT a matmul: a K=3 contraction pads to 128x128 MXU tiles
-    at <1% utilization, and the TPU default precision would run it in
-    bfloat16 passes whose ~3 decimal digits destroy the ray-geometry
-    cancellations (hit points land ~1 world unit off the surface ->
-    catastrophic shadow acne).  The FMA form is exact f32 and fuses."""
+    Deliberately NOT a matmul: a K=3 contraction wastes a matrix unit, and
+    a reduced default matmul precision (TF32 on a GPU) keeps only ~3
+    decimal digits, which destroys the ray-geometry cancellations (hit
+    points land ~1 world unit off the surface -> catastrophic shadow
+    acne).  The FMA form is exact f32 and fuses."""
     return (a[:, 0, None] * b_t[None, :, 0]
             + a[:, 1, None] * b_t[None, :, 1]
             + a[:, 2, None] * b_t[None, :, 2])
@@ -136,8 +136,8 @@ def intersect_scene(scene: FlatScene, o, v, *, small: float = 1e-4,
 
     if prune:
         pruned = group_prune_mask(scene, o, u, small)  # [P,G]
-        # group -> primitive expansion as a [P,G] x [G,N] one-hot matmul
-        # (per-ray gathers are poison on TPU; see the one-hot note below)
+        # group -> primitive expansion as a [P,G] x [G,N] one-hot
+        # reduction (see the one-hot note below)
         gids = jnp.arange(scene.num_groups, dtype=jnp.int32)
         tri_g = (gids[:, None] == scene.tri_group[None, :]).astype(dtype)
         sph_g = (gids[:, None] == scene.sph_group[None, :]).astype(dtype)
@@ -192,9 +192,9 @@ def intersect_scene(scene: FlatScene, o, v, *, small: float = 1e-4,
         col = jax.lax.broadcasted_iota(jnp.int32, all_dist.shape, 1)
         all_dist = jnp.where(col == exclude_id[:, None], BIG, all_dist)
     best = jnp.argmin(all_dist, axis=1)
-    # Per-ray gathers (take_along_axis / fancy indexing) run on the TPU's
-    # slow scalar path; everything below is phrased as one-hot reductions
-    # and small [P,N] x [N,k] matmuls on the MXU instead.
+    # Everything below is phrased as one-hot reductions instead of per-ray
+    # gathers (take_along_axis / fancy indexing) — a choice made for an
+    # earlier accelerator; gathers may well be cheaper on a GPU (ROADMAP).
     col = jax.lax.broadcasted_iota(jnp.int32, all_dist.shape, 1)
     onehot_b = col == best[:, None]              # [P, nt+ns] bool
     onehot = onehot_b.astype(dtype)

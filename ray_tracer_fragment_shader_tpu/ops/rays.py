@@ -15,13 +15,13 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import CameraConfig
 from ..utils.jmath import safe_normalize
+from ..utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     eye: Any       # [3]
     look_at: Any   # [3]

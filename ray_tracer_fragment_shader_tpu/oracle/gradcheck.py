@@ -3,10 +3,9 @@ through the float64 NumPy oracle (oracle/numpy_ref.py — an independent
 implementation sharing no JAX code).
 
 This is the machinery behind the BASELINE bar "grad max-abs-err <= 1e-4 vs
-reference" (BASELINE.md), shared by tests/test_grad_bar.py (CPU interpret
-mode: exact divides) and scripts/grad_bar_tpu.py (the real TPU kernel with
-``fast_recip`` on — the arithmetic the chip actually executes; VERDICT r2
-item 4).
+reference" (BASELINE.md), shared by tests/test_grad_bar.py (CPU, kernels
+in interpret mode) and chip_smoke.py (the compiled kernels on the GPU — the
+arithmetic the card actually executes).
 
 The functional is J(params) = mean_k w_k . rgb_k over *interior* pixels:
 hit topology (primitive/material/lit flags at every bounce node) constant
@@ -17,8 +16,8 @@ parameters are O(1)-scaled (mean of unit-range pixel values; world-unit
 geometry), so the raw max-abs-err is the BASELINE metric, not a rel-err
 proxy.  Works for chain-exact and fractional-transparency (bounce-tree)
 scenes alike: the oracle's ``trace_ray`` is the literal recursive
-``rayTraceRay`` (both branches), and the stable-pixel test uses whichever
-residual planes (per level / per preorder node) the kernel emitted.
+``rayTraceRay`` (both branches); the stable-pixel test reads the residual
+planes of the chain kernel.
 """
 from __future__ import annotations
 
@@ -43,12 +42,12 @@ def camera_f64(camcfg, w: int, h: int):
     return eye, base, right, up2, camcfg.pixel_scale
 
 
-def stable_interior_pixels(res: Dict[str, Any], cfg, scene, camcfg,
-                           kink: float = 0.05) -> List[Tuple[int, int]]:
-    """Pixels whose residual topology is constant over a 3x3 neighborhood
-    and whose level-0 shading sits away from the |.| kinks for every
-    light."""
-    bi = np.asarray(res["bi"])            # [K,H,W] (levels or tree nodes)
+def stable_topology_mask(res: Dict[str, Any]) -> np.ndarray:
+    """[H,W] bool: interior pixels whose residual topology (hit ids,
+    material ids and lit flags at every bounce level) is constant over
+    their 3x3 neighborhood — away from silhouettes, shadow edges and
+    checker edges, where the fixed-topology gradient is ill-conditioned."""
+    bi = np.asarray(res["bi"])            # [K,H,W]
     mid = np.asarray(res["mid"])
     lit = np.asarray(res["lit"])          # [L,K,H,W]
     planes = np.concatenate([bi, mid, lit.reshape(-1, *bi.shape[1:])], 0)
@@ -61,7 +60,16 @@ def stable_interior_pixels(res: Dict[str, Any], cfg, scene, camcfg,
                 continue
             shifted = np.roll(planes, (dj, di), axis=(1, 2))
             ok &= np.all(planes == shifted, axis=0)
-    ok &= bi[0] >= 0.0  # primary hit
+    return ok
+
+
+def stable_interior_pixels(res: Dict[str, Any], cfg, scene, camcfg,
+                           kink: float = 0.05) -> List[Tuple[int, int]]:
+    """Pixels whose residual topology is constant over a 3x3 neighborhood
+    and whose level-0 shading sits away from the |.| kinks for every
+    light."""
+    ok = stable_topology_mask(res)
+    ok &= np.asarray(res["bi"])[0] >= 0.0  # primary hit
 
     sc = OracleScene.from_flat(scene, small=cfg.small_number)
     eye, base, right, up2, scale = camera_f64(camcfg, cfg.width, cfg.height)
@@ -188,3 +196,49 @@ def summarize(checks) -> Dict[str, Any]:
                 worst_fd=float(truth[worst]),
                 grad_scale=float(np.abs(truth).max()),
                 n_checks=len(checks))
+
+
+def cotangent_plane(cfg, pix, w_rgb):
+    """[H,W,3] cotangent of the functional J: w_k / K at the picked pixels."""
+    g = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    for k, (j, i) in enumerate(pix):
+        g[j, i] = w_rgb[k] / len(pix)
+    return g
+
+
+def run_grad_bar(scene, camcfg, cfg, grads_fn, *, interpret=None,
+                 n_each: int = 16, min_sph: int = 4,
+                 min_pix: int = 24) -> Dict[str, Any]:
+    """The gradient bar's whole flow: the chain kernel's residual forward
+    -> stable interior pixels -> candidate gradients ``grads_fn(camera,
+    g)`` for the cotangent ``g`` of J -> central finite differences through
+    the f64 oracle -> ``summarize`` dict (compare its ``max_abs_err`` with
+    the bar).  ``interpret`` is passed to the residual forward.  For a
+    fractional-transparency scene the stable-pixel screen reads the chain
+    kernel's residuals of the same scene (each pixel's chain path through
+    its bounce tree)."""
+    import jax.numpy as jnp
+
+    from ..kernels.render_pallas import (compact_scene,
+                                         render_forward_with_residuals)
+    from ..ops.rays import Camera
+
+    scene = compact_scene(scene)
+    cam = Camera.from_config(camcfg, cfg.width, cfg.height)
+    _, res = render_forward_with_residuals(scene.replace(chain_exact=True),
+                                           cam, cfg, interpret=interpret)
+    res = {k: np.asarray(v) for k, v in res.items()}
+    pix = stable_interior_pixels(res, cfg, scene, camcfg)
+    if len(pix) < min_pix:
+        raise AssertionError(f"only {len(pix)} stable interior pixels")
+    pix, n_sph = stratified_pick(pix, res, scene, n_each=n_each)
+    if n_sph < min_sph:
+        raise AssertionError(f"only {n_sph} stable sphere pixels")
+
+    rng = np.random.RandomState(0)
+    w_rgb = rng.uniform(0.25, 1.0, size=(len(pix), 3))
+    g = jnp.asarray(cotangent_plane(cfg, pix, w_rgb))
+    grads = {k: np.asarray(v, np.float64)
+             for k, v in grads_fn(cam, g).items()}
+    J = make_functional(scene, cfg, camcfg, pix, w_rgb)
+    return summarize(param_checks(J, scene, grads))

@@ -1,6 +1,6 @@
 """Device-mesh helpers.
 
-The reference is a single-threaded CPU loop (SURVEY.md 2.3); the TPU-native
+The reference is a single-threaded CPU loop (SURVEY.md 2.3); the
 scaling dimension is pixel-tile data parallelism over a ``jax.sharding.Mesh``
 with replicated scene parameters — rays are embarrassingly parallel, the only
 cross-device reductions are gradient psums in the backward pass.
@@ -19,7 +19,7 @@ TILE_AXIS = "tiles"
 def make_mesh(devices: Optional[Sequence] = None, axis: str = TILE_AXIS) -> Mesh:
     """1-D mesh over all (or the given) devices; pixel tiles shard along it.
 
-    On a multi-host pod slice, call ``jax.distributed.initialize()`` first;
+    With several hosts, call ``jax.distributed.initialize()`` first;
     ``jax.devices()`` then spans all hosts and the same SPMD code runs
     per-host (no per-rank code paths, SURVEY.md section 4 item 3).
     """

@@ -2,9 +2,9 @@
 
 Pixel tiles shard across the mesh; the scene/camera pytrees are replicated.
 Forward needs no communication at all (tiles are independent); backward
-all-reduces the replicated-parameter gradients with ``psum`` over ICI —
-the TPU-native equivalent of the reference's (absent) multi-process story
-(SURVEY.md section 2.3).
+all-reduces the replicated-parameter gradients with ``psum`` — the
+counterpart of the reference's (absent) multi-process story (SURVEY.md
+section 2.3).
 """
 from __future__ import annotations
 
@@ -57,17 +57,16 @@ def band_split(height: int, n_shards: int):
 def render_image_sharded(scene: FlatScene, camera: Camera,
                          config: RenderConfig, mesh: Optional[Mesh] = None,
                          axis: str = TILE_AXIS, backend: str = "core",
-                         block_h: int = 8, block_w: int = 512,
                          interpret: Optional[bool] = None):
     """Full-frame render with pixel tiles sharded over the mesh -> [H,W,3].
 
     ``backend="core"`` shards flat pixel indices through the XLA renderer;
     ``backend="pallas"`` shards the image into contiguous row bands, each
-    rendered by the fused Pallas kernel on its device — the fast multi-chip
-    forward (VERDICT r1 item 1).  Forward needs no collectives either way.
+    rendered by the Pallas forward kernel on its device.  Forward needs no
+    collectives either way.
 
-    The result is produced as a sharded global array; callers on a
-    multi-host pod keep it device-local (only fetch for preview/IO).
+    The result is produced as a sharded global array; multi-host callers
+    keep it device-local (only fetch for preview/IO).
     """
     mesh = make_mesh() if mesh is None else mesh
     n = mesh.devices.size
@@ -84,7 +83,6 @@ def render_image_sharded(scene: FlatScene, camera: Camera,
             ii, jj = band_rows(w, h_shard, axis)
             pts = screen_points(camera, w, h_shard, ij=(ii, jj))
             return render_image_pallas(scene, camera, cfg_s,
-                                       block_h=block_h, block_w=block_w,
                                        interpret=interpret, pts=pts)
 
         return band_render(scene)[:h]

@@ -1,6 +1,6 @@
 """FlatScene — the structure-of-arrays scene pytree.
 
-This is the TPU-native replacement for the reference's pointer-based composite
+This is the array-friendly replacement for the reference's pointer-based composite
 of ``RayObject`` subclasses (``Hw4/MySdlApplication.cpp:361-567``).  At build
 time every object (tetrahedron/cube/quad/cylinder/cone/checkerboard) compiles
 down to a triangle soup plus analytic spheres, exactly how the reference
@@ -19,12 +19,12 @@ from typing import Any, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..config import SMALL_NUMBER
+from ..utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class FlatScene:
     # --- spheres (Shape with _amSphere, MySdlApplication.cpp:747-793) ------
     sph_center: Any  # [Ns,3] f32 — world-space centers
@@ -64,12 +64,12 @@ class FlatScene:
 
     # --- static metadata ----------------------------------------------------
     #: material rows used for even/odd checker squares (white, black).
-    checker_mats: Tuple[int, int] = struct.field(pytree_node=False, default=(0, 1))
+    checker_mats: Tuple[int, int] = static_field((0, 1))
     #: True when every material's transparency is all-0 or all-1 so the
     #: iterative chain renderer is exact (see RenderConfig.mode).
-    chain_exact: bool = struct.field(pytree_node=False, default=True)
+    chain_exact: bool = static_field(True)
     #: True when some material traces transmitted rays at all.
-    has_transmission: bool = struct.field(pytree_node=False, default=False)
+    has_transmission: bool = static_field(False)
 
     # ------------------------------------------------------------------ api
     @property

@@ -1,7 +1,7 @@
 """Tracing / profiling.
 
 The reference's only instrumentation is commented-out per-pixel couts
-(Hw4/MySdlApplication.cpp:1317-1318).  TPU-native equivalents: named scopes
+(Hw4/MySdlApplication.cpp:1317-1318).  Equivalents here: named scopes
 for the forward/backward/collective phases, jax.profiler trace capture, and
 a rays/s meter (SURVEY.md section 5)."""
 from __future__ import annotations
@@ -15,7 +15,7 @@ import jax
 
 @contextlib.contextmanager
 def named_phase(name: str) -> Iterator[None]:
-    """Annotate a trace region (shows up in xprof/tensorboard timelines)."""
+    """Annotate a trace region (shows up in profiler timelines)."""
     with jax.named_scope(name):
         yield
 

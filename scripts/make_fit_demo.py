@@ -26,12 +26,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_CACHE_DIR", "/root/repo/.jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -41,6 +36,8 @@ from ray_tracer_fragment_shader_tpu.diff.multiview import (  # noqa: E402
 from ray_tracer_fragment_shader_tpu.io.image import write_png  # noqa: E402
 from ray_tracer_fragment_shader_tpu.ops.rays import Camera  # noqa: E402
 from ray_tracer_fragment_shader_tpu.scene import presets  # noqa: E402
+from ray_tracer_fragment_shader_tpu.utils.cache import (  # noqa: E402
+    enable_compile_cache)
 
 
 def main() -> None:
@@ -52,6 +49,7 @@ def main() -> None:
     ap.add_argument("--views", type=int, default=3)
     ap.add_argument("--out", default="artifacts/fit_demo")
     args = ap.parse_args()
+    enable_compile_cache()
 
     scene, camcfg, cfg = presets.fit_target(size=args.size)
     views = orbit_views(camcfg, args.views, span_deg=80.0)
@@ -100,7 +98,8 @@ def main() -> None:
 
     report = dict(
         size=args.size, views=args.views, seed=args.seed,
-        device=jax.devices()[0].device_kind,
+        device=dict(platform=jax.devices()[0].platform,
+                    kind=jax.devices()[0].device_kind),
         board_square_world_units=40.0,
         init_errors=err0, final_errors=err1,
         loss_init=l_init, loss_fit=l_fit,

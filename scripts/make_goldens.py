@@ -59,7 +59,6 @@ def render(name):
     cam = Camera.from_config(camcfg, cfg.width, cfg.height)
     core = np.asarray(render_image(scene, cam, cfg))
     pallas = np.asarray(render_image_pallas(scene, cam, cfg,
-                                            block_h=8, block_w=128,
                                             interpret=True))
     return core, pallas
 

@@ -2,9 +2,10 @@
 
 Each of the two spawned processes brings up ``jax.distributed`` via
 ``initialize_multihost`` (the one code path that differs between the
-single-host CPU dryrun and a real pod — VERDICT r4 weak #4), contributes 2
-virtual CPU devices to a 4-device global mesh, and runs ONE sharded
-fused-Pallas fit step (``make_sharded_fit_step_pallas``).  The loss is
+single-host CPU dryrun and a multi-host run — VERDICT r4 weak #4),
+contributes 2 virtual CPU devices to a 4-device global mesh, and runs ONE
+sharded kernel-path fit step (``make_sharded_fit_step_pallas``, kernels in
+interpret mode).  The loss is
 psum'd over the global mesh, so every process prints the same globally
 reduced value; the parent asserts it equals the single-process loss.
 
@@ -52,6 +53,7 @@ opt = optax.adam(0.05)
 state = opt.init(params)
 
 mesh = make_mesh(jax.devices())  # spans both processes
-step, tgt = make_sharded_fit_step_pallas(scene, cam, cfg, target, opt, mesh)
+step, tgt = make_sharded_fit_step_pallas(scene, cam, cfg, target, opt, mesh,
+                                         interpret=True)
 params, state, loss = step(params, state, tgt)
 print(f"MULTIHOST_LOSS {float(loss):.10g}", flush=True)

@@ -29,7 +29,8 @@ def setup():
 
 def test_replay_reproduces_kernel_forward(setup):
     scene, cam, cfg = setup
-    img, res = render_forward_with_residuals(scene, cam, cfg)
+    img, res = render_forward_with_residuals(scene, cam, cfg,
+                                             interpret=True)
     rep = replay_render(scene, cam, cfg, res)
     np.testing.assert_allclose(np.asarray(img), np.asarray(rep), atol=2e-3)
 
@@ -43,7 +44,7 @@ def test_grads_match_core_autodiff(setup):
     gc = jax.grad(lambda p: jnp.mean(
         render_image(p.into_scene(scene), cam, cfg)))(params)
     gp = jax.grad(lambda p: jnp.mean(
-        render_image_diff(p.into_scene(scene), cam, cfg)))(params)
+        render_image_diff(p.into_scene(scene), cam, cfg, True)))(params)
 
     for fname, tol in [("sph_center", 5e-3), ("sph_radius", 5e-3),
                        ("light_pos", 3e-2), ("mat_diffuse", 3e-2),
@@ -58,14 +59,15 @@ def test_grads_match_core_autodiff(setup):
 
 def test_camera_grads_flow(setup):
     scene, cam, cfg = setup
-    g = jax.grad(lambda c: jnp.mean(render_image_diff(scene, c, cfg)))(cam)
+    g = jax.grad(lambda c: jnp.mean(
+        render_image_diff(scene, c, cfg, True)))(cam)
     assert np.isfinite(np.asarray(g.eye)).all()
     assert np.abs(np.asarray(g.eye)).max() > 0
 
 
 def test_pallas_fit_descends(setup):
     scene, cam, cfg = setup
-    target = render_image_diff(scene, cam, cfg)
+    target = render_image_diff(scene, cam, cfg, True)
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 2.0)
     opt = optax.adam(0.05)
@@ -73,7 +75,7 @@ def test_pallas_fit_descends(setup):
     losses = []
     for _ in range(6):
         loss, grads = jax.value_and_grad(l2_loss_pallas)(
-            params, scene, cam, cfg, target)
+            params, scene, cam, cfg, target, True)
         updates, state = opt.update(grads, state, params)
         params = optax.apply_updates(params, updates)
         losses.append(float(loss))
@@ -85,4 +87,5 @@ def test_residual_forward_rejects_multisample(setup):
     scene, cam, cfg = setup
     with pytest.raises(ValueError):
         render_forward_with_residuals(
-            scene, cam, dataclasses.replace(cfg, samples=4))
+            scene, cam, dataclasses.replace(cfg, samples=4),
+            interpret=True)

@@ -40,12 +40,13 @@ def test_matches_replay_adjoint(setup):
         sph_center=scene.sph_center + 1.5)
 
     loss_r, grads_r = jax.value_and_grad(l2_loss_pallas)(
-        params, scene, cam, cfg, target)
-    loss_f, grads_f = fit_value_and_grad(params, scene, cam, cfg, target)
+        params, scene, cam, cfg, target, True)
+    loss_f, grads_f = fit_value_and_grad(params, scene, cam, cfg, target,
+                                         interpret=True)
 
     assert abs(float(loss_r) - float(loss_f)) <= 1e-6 * max(float(loss_r), 1)
     for fname in FIELDS:
-        # tile-order accumulation vs whole-image reductions: f32
+        # block-order accumulation vs whole-image reductions: f32
         # reassociation puts the two backends ~1e-4 apart at worst
         r = _rel(getattr(grads_r, fname), getattr(grads_f, fname))
         assert r < 5e-4, f"{fname}: rel diff {r:.3g}"
@@ -53,13 +54,12 @@ def test_matches_replay_adjoint(setup):
 
 
 def test_matches_core_autodiff(setup):
-    """Fused kernel grads vs jax.grad of the XLA reference renderer, under a
-    uniform cotangent (insensitive to the few decision-boundary pixels where
-    kernel and core pick different hits — same device as test_adjoint.py)."""
+    """Kernel grads (recompute backward) vs jax.grad of the XLA reference
+    renderer, under a uniform cotangent (insensitive to the few
+    decision-boundary pixels where kernel and core pick different hits —
+    same device as test_adjoint.py)."""
     from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
-        fit_grads_pallas)
-    from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
-        render_forward_with_residuals)
+        recompute_grads_pallas)
 
     scene, cam, cfg, target = setup
     params = FitParams.from_scene(scene)
@@ -67,11 +67,10 @@ def test_matches_core_autodiff(setup):
     grads_c = jax.grad(lambda p: jnp.mean(
         render_image(p.into_scene(scene), cam, cfg)))(params)
 
-    _, res = render_forward_with_residuals(scene, cam, cfg)
     g = jnp.full((SIZE, SIZE, 3), 1.0 / (SIZE * SIZE * 3), jnp.float32)
-    grads_f = fit_grads_pallas(scene, cam, cfg, res, g)
+    grads_f = recompute_grads_pallas(scene, cam, cfg, g, interpret=True)
 
-    # fit_grads_pallas returns compacted sphere rows; core grads are padded
+    # the kernel returns compacted sphere rows; core grads are padded
     take = np.nonzero(np.asarray(scene.sph_valid))[0]
     for fname, tol in [("sph_center", 5e-3), ("sph_radius", 5e-3),
                        ("light_pos", 3e-2), ("mat_diffuse", 3e-2),
@@ -83,62 +82,70 @@ def test_matches_core_autodiff(setup):
         assert r < tol, f"{fname}: rel diff {r:.3g}"
 
 
-def test_single_kernel_matches_two_phase(setup):
-    """The one-dispatch fused fwd+bwd kernel (residuals in VMEM scratch) vs
-    the split residual-forward + backward-kernel path: identical math,
-    so loss and every gradient leaf agree to float32 noise."""
-    scene, cam, cfg, target = setup
-    params = FitParams.from_scene(scene).replace(
-        sph_center=scene.sph_center + 1.5)
-    loss_1, grads_1 = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         mode="fused")
-    loss_2, grads_2 = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         mode="split")
-    assert abs(float(loss_1) - float(loss_2)) <= 1e-6 * max(float(loss_2), 1)
-    for fname in FIELDS:
-        r = _rel(getattr(grads_1, fname), getattr(grads_2, fname))
-        assert r < 1e-5, f"{fname}: rel diff {r:.3g}"
-
-
-def test_twophase_packed_matches_fused(setup):
-    """The packed two-phase path (default): single-plane packed residuals
-    + in-kernel cotangent prologue.  Same replay adjoint, same gather
-    transpose.  With the phase-2 block pinned to the forward block the
-    result is BIT-identical to the fused kernel (the residual pack/unpack
-    is integer-exact by construction); on the default path the backward
-    runs its own sweep-winning block (16x256), so the per-tile gradient
-    accumulation ORDER differs — reassociation-level equality only."""
+def _partials_with_block(scene, cam, cfg, g, block):
+    """The recompute backward's reduced gradient tables with a chosen
+    (pixels per program, warps) block."""
     from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
-        fused_loss_grads_pallas, twophase_loss_grads_pallas)
+        _backward_call, _recompute_bwd_kernel)
+    from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
+        compact_scene, pack_scene_for, pad_plane, ray_planes)
+    from ray_tracer_fragment_shader_tpu.ops.rays import screen_points
+    scene = compact_scene(scene)
+    packed = pack_scene_for(scene, cam)
+    pts = screen_points(cam, cfg.width, cfg.height)
+    planes = ray_planes(cam, pts, block[0]) + tuple(
+        pad_plane(g[..., k], block[0]) for k in range(3))
+    return _backward_call(_recompute_bwd_kernel, "t", packed, scene, cfg,
+                          planes, interpret=True, block=block)[1]
+
+
+def test_block_partials_match_single_block(setup):
+    """Each program writes its own row of partial sums and XLA sums the
+    rows: the result equals a run in which one program covers the whole
+    frame (one row, no cross-program reduction) up to f32 reassociation."""
+    scene, cam, cfg, target = setup
+    g = (render_image(scene, cam, cfg) - 0.9 * target) * 1e-3
+    one = _partials_with_block(scene, cam, cfg, g, (SIZE * SIZE, 4))
+    many = _partials_with_block(scene, cam, cfg, g, (64, 4))
+    for k in one:
+        r = _rel(one[k], many[k])
+        assert r < 1e-5, f"{k}: rel diff {r:.3g}"
+        assert np.abs(np.asarray(one[k])).max() > 0
+
+
+def test_recompute_matches_twophase(setup):
+    """The two backward kernels — packed two-phase (cotangent formed
+    in-kernel) and recompute (cotangent passed in) — run the same adjoint
+    on the same topology: equal gradients to f32 noise."""
+    from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
+        recompute_grads_pallas, twophase_loss_grads_pallas)
+    from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
+        render_image_pallas)
     scene, cam, cfg, target = setup
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 1.5)
     scene_p = params.into_scene(scene)
-
-    # bit-exactness at matched blocks
-    sq_f, gc_f = fused_loss_grads_pallas(scene_p, cam, cfg, target)
-    sq_t, gc_t = twophase_loss_grads_pallas(scene_p, cam, cfg, target,
-                                            bwd_block=(8, 512))
-    assert float(sq_f) == float(sq_t)
-    for k in gc_f:
-        np.testing.assert_array_equal(np.asarray(gc_f[k]),
-                                      np.asarray(gc_t[k]))
-
-    # the default path (phase-2 block 16x256): reassociation-level parity
-    loss_f, grads_f = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         mode="fused")
-    loss_t, grads_t = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         mode="twophase")
-    assert abs(float(loss_f) - float(loss_t)) <= 1e-6 * max(float(loss_f), 1)
-    for fname in FIELDS:
-        r = _rel(getattr(grads_f, fname), getattr(grads_t, fname))
-        assert r < 5e-4, f"{fname}: rel diff {r:.3g}"
+    denom = float(SIZE * SIZE * 3)
+    sq, g_t = twophase_loss_grads_pallas(scene_p, cam, cfg, target,
+                                         interpret=True)
+    img = render_image_pallas(scene_p, cam, cfg, interpret=True)
+    g_r = recompute_grads_pallas(scene_p, cam, cfg,
+                                 (2.0 / denom) * (img - target),
+                                 interpret=True)
+    assert float(sq) == pytest.approx(float(jnp.sum((img - target) ** 2)),
+                                      rel=1e-5)
+    for k in g_t:
+        r = _rel(g_t[k], g_r[k])
+        assert r < 1e-5, f"{k}: rel diff {r:.3g}"
 
 
 def test_twophase_packed_transmitting_chain():
     """Packed two-phase on a chain-exact scene WITH full transparency
     (the Snell/select branch live) and 2 lights (two lit bits in the
-    packed plane): still bit-identical to the fused kernel."""
+    packed plane) vs the float64 replay through the kernel's own topology
+    on the stable pixels (oracle/replay64.py)."""
+    from ray_tracer_fragment_shader_tpu.oracle.replay64 import (
+        masked_grads_vs_replay64)
     from ray_tracer_fragment_shader_tpu.scene import (Material, SceneBuilder)
     from ray_tracer_fragment_shader_tpu.scene import presets
     glass = Material(ambient=(0.02, 0.02, 0.02), diffuse=(0.1, 0.1, 0.2),
@@ -149,23 +156,20 @@ def test_twophase_packed_transmitting_chain():
              .add_light("b6").add_light("f7", color=(0.8, 0.9, 1.0))
              .build())
     assert scene.chain_exact and scene.has_transmission
-    camcfg = presets._cam(SIZE)
-    cfg = presets.fit_target(size=SIZE)[2]
-    cam = Camera.from_config(camcfg, SIZE, SIZE)
+    size = 64   # the spheres need a few pixels of stable topology
+    camcfg = presets._cam(size)
+    cfg = presets.fit_target(size=size)[2]
+    cam = Camera.from_config(camcfg, size, size)
     target = render_image(scene, cam, cfg)
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 1.0)
-    loss_f, grads_f = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         mode="fused")
-    loss_t, grads_t = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         mode="twophase")
-    assert abs(float(loss_f) - float(loss_t)) <= 1e-6 * max(float(loss_f), 1)
+    g_t, g_64, share = masked_grads_vs_replay64(
+        params, scene, cam, cfg, target, interpret=True)
+    assert share > 0.3
     for fname in FIELDS:
-        # same math, but different fma contraction of the cotangent
-        # formation AND a different phase-2 tile accumulation order
-        # (default bwd block 16x256) — reassociation-level only
-        r = _rel(getattr(grads_f, fname), getattr(grads_t, fname))
+        r = _rel(getattr(g_64, fname), getattr(g_t, fname))
         assert r < 5e-4, f"{fname}: rel diff {r:.3g}"
+        assert np.abs(np.asarray(getattr(g_t, fname))).max() > 0
 
 
 def test_pack_widths_bounds():
@@ -188,7 +192,8 @@ def test_fused_fit_descends(setup):
     state = opt.init(params)
     losses = []
     for _ in range(6):
-        loss, grads = fit_value_and_grad(params, scene, cam, cfg, target)
+        loss, grads = fit_value_and_grad(params, scene, cam, cfg, target,
+                                         interpret=True)
         updates, state = opt.update(grads, state, params)
         params = optax.apply_updates(params, updates)
         losses.append(float(loss))
@@ -200,33 +205,38 @@ def test_jits(setup):
     scene, cam, cfg, target = setup
     params = FitParams.from_scene(scene)
     loss, grads = jax.jit(
-        lambda p: fit_value_and_grad(p, scene, cam, cfg, target))(params)
+        lambda p: fit_value_and_grad(p, scene, cam, cfg, target,
+                                     interpret=True))(params)
     assert np.isfinite(float(loss))
     assert np.isfinite(np.asarray(grads.sph_center)).all()
 
 
 def test_prepared_inputs_match_inline(setup):
     """prepare_fit_inputs + prep= must be bit-identical to the inline path
-    (same planes, same kernel) and reject block-shape mismatches."""
+    (same planes, same kernels), with every plane padded so that both the
+    forward and the backward block divide it."""
     from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
         prepare_fit_inputs)
+    from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
+        BWD_BLOCK, FWD_BLOCK, PLANE_MULT)
     scene, cam, cfg, target = setup
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 1.0)
 
     loss_i, grads_i = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         block_h=8, block_w=128)
-    prep = prepare_fit_inputs(cam, cfg, target, block_h=8, block_w=128)
+                                         interpret=True)
+    prep = prepare_fit_inputs(cam, cfg, target)
     loss_p, grads_p = fit_value_and_grad(params, scene, cam, cfg, target,
-                                         block_h=8, block_w=128, prep=prep)
+                                         interpret=True, prep=prep)
     assert float(loss_i) == float(loss_p)
     for fname in FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(grads_i, fname)),
                                       np.asarray(getattr(grads_p, fname)))
-
-    with pytest.raises(ValueError, match="block"):
-        fit_value_and_grad(params, scene, cam, cfg, target,
-                           block_h=16, block_w=128, prep=prep)
+    for k in ("vx", "tr", "mask"):
+        (n,) = prep[k].shape
+        assert n % PLANE_MULT == 0 and n >= SIZE * SIZE
+        assert n % FWD_BLOCK[0] == 0 and n % BWD_BLOCK[0] == 0
+    assert float(jnp.sum(prep["mask"])) == SIZE * SIZE
 
 
 def test_prep_provenance_checked(setup):
@@ -238,34 +248,35 @@ def test_prep_provenance_checked(setup):
     scene, cam, cfg, target = setup
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 1.0)
-    prep = prepare_fit_inputs(cam, cfg, target, block_h=8, block_w=128)
+    prep = prepare_fit_inputs(cam, cfg, target)
 
     other_target = target * 0.5
     with pytest.raises(ValueError, match="different `target`"):
         fit_value_and_grad(params, scene, cam, cfg, other_target,
-                           block_h=8, block_w=128, prep=prep)
+                           interpret=True, prep=prep)
 
     # the sanctioned way to say "use the prep's planes"
     loss_none, _ = fit_value_and_grad(params, scene, cam, cfg, None,
-                                      block_h=8, block_w=128, prep=prep)
+                                      interpret=True, prep=prep)
     loss_same, _ = fit_value_and_grad(params, scene, cam, cfg, target,
-                                      block_h=8, block_w=128, prep=prep)
+                                      interpret=True, prep=prep)
     assert float(loss_none) == float(loss_same)
 
 
 def test_make_fit_step_pallas_descends(setup):
-    """The user-facing fused fit-step constructor (prep hoisted once) —
-    the code path the headline bench times — descends and matches the
-    un-prepped fused loss on its first step."""
+    """The user-facing kernel fit-step constructor (prep hoisted once)
+    descends and matches the un-prepped loss on its first step."""
     from ray_tracer_fragment_shader_tpu.diff.fit import make_fit_step_pallas
     scene, cam, cfg, target = setup
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 2.0)
     opt = optax.adam(0.05)
     state = opt.init(params)
-    step = make_fit_step_pallas(scene, cam, cfg, target, opt)
+    step = make_fit_step_pallas(scene, cam, cfg, target, opt,
+                                interpret=True)
 
-    loss_ref, _ = fit_value_and_grad(params, scene, cam, cfg, target)
+    loss_ref, _ = fit_value_and_grad(params, scene, cam, cfg, target,
+                                     interpret=True)
     losses = []
     for _ in range(6):
         params, state, loss = step(params, state)
@@ -280,15 +291,16 @@ def test_adaptive_matches_replay_backward_per_sample(setup):
     kernel fast path, with REAL jitter: constant-color regions converge at
     k=1 (divisor quirk) while detailed pixels accept all samples, so the
     accept/divisor planes are genuinely mixed.  The fast path's gradients
-    must equal the sum of per-sample XLA-replay backward gradients
-    (fit_grads_pallas — an independent backward implementation) weighted by
-    the same recorded accept_k / divisor planes."""
+    must equal the sum of per-sample backward gradients computed here
+    (the per-sample recompute kernel, ``recompute_grads_pallas``) weighted
+    by accept_k / divisor planes this test records itself — an
+    independent implementation of the adaptive weighting."""
     import dataclasses
 
     from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
-        fit_grads_pallas, grads_to_fitparams)
+        grads_to_fitparams, recompute_grads_pallas)
     from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
-        render_forward_with_residuals, render_image_pallas)
+        render_image_pallas)
     from ray_tracer_fragment_shader_tpu.ops.rays import (sample_jitter,
                                                          screen_points)
 
@@ -296,12 +308,13 @@ def test_adaptive_matches_replay_backward_per_sample(setup):
     S = 3
     cfg_a = dataclasses.replace(cfg, samples=S, adaptive=True)
     cfg1 = dataclasses.replace(cfg, samples=1, force_jitter=False)
-    target = render_image_pallas(scene, cam, cfg_a) * 0.9
+    target = render_image_pallas(scene, cam, cfg_a, interpret=True) * 0.9
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 0.3)
     scene_p = params.into_scene(scene)
 
-    loss_a, g_a = fit_value_and_grad(params, scene, cam, cfg_a, target)
+    loss_a, g_a = fit_value_and_grad(params, scene, cam, cfg_a, target,
+                                     interpret=True)
 
     # reproduce the forward emulation to get img/accepts/divisor (this
     # replication is exact: same kernels, same PRNG stream)
@@ -315,7 +328,8 @@ def test_adaptive_matches_replay_backward_per_sample(setup):
         jit = sample_jitter(keys[k], pts0.shape[0], cfg_a.jitter_scale,
                             dtype=pts0.dtype)
         jits.append(jit)
-        c = render_image_pallas(scene_p, cam, cfg1, pts=pts0 + jit)
+        c = render_image_pallas(scene_p, cam, cfg1, pts=pts0 + jit,
+                                interpret=True)
         accepts.append(jnp.logical_not(done))
         accum_after = jnp.where(done[..., None], accum, accum + c)
         d = k * accum_after - (k + 1.0) * accum
@@ -330,15 +344,13 @@ def test_adaptive_matches_replay_backward_per_sample(setup):
     assert 0 < float(jnp.mean(jnp.where(accepts[-1], 1.0, 0.0))) < 1
     g = (2.0 / img.size) * (img - target)
 
-    # independent backward: per-sample XLA-replay kernel with the same
-    # accept_k/divisor weighting
+    # independent weighting: per-sample backward kernel with the
+    # accept_k/divisor weights recorded above
     expected = None
     for k in range(S):
-        _, res = render_forward_with_residuals(scene_p, cam, cfg1,
-                                               pts=pts0 + jits[k])
         wk = jnp.where(accepts[k], 1.0, 0.0) / divisor
-        gk = fit_grads_pallas(scene_p, cam, cfg1, res, g * wk[..., None],
-                              pts=pts0 + jits[k])
+        gk = recompute_grads_pallas(scene_p, cam, cfg1, g * wk[..., None],
+                                    interpret=True, pts=pts0 + jits[k])
         expected = gk if expected is None else jax.tree_util.tree_map(
             jnp.add, expected, gk)
     g_e = grads_to_fitparams(params, scene_p, expected)
@@ -373,15 +385,18 @@ def test_adaptive_divisor_quirk_gradient():
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 0.3)
     scene_p = params.into_scene(scene)
-    c0 = render_image_pallas(scene_p, cam, cfg)      # single sample
-    img_a = render_image_pallas(scene_p, cam, cfg_a)
+    c0 = render_image_pallas(scene_p, cam, cfg,
+                             interpret=True)                # single sample
+    img_a = render_image_pallas(scene_p, cam, cfg_a, interpret=True)
     np.testing.assert_allclose(np.asarray(img_a), np.asarray(2.0 * c0),
                                rtol=1e-6)            # the quirk itself
-    target = render_image_pallas(scene, cam, cfg_a) * 0.9
+    target = render_image_pallas(scene, cam, cfg_a, interpret=True) * 0.9
 
-    loss_a, g_a = fit_value_and_grad(params, scene, cam, cfg_a, target)
+    loss_a, g_a = fit_value_and_grad(params, scene, cam, cfg_a, target,
+                                     interpret=True)
     loss_1, g_1 = fit_value_and_grad(params, scene, cam, cfg,
-                                     target - np.asarray(c0))
+                                     target - np.asarray(c0),
+                                     interpret=True)
     assert float(loss_a) == pytest.approx(
         float(np.mean((np.asarray(img_a) - np.asarray(target)) ** 2)),
         rel=1e-5)
@@ -393,21 +408,19 @@ def test_adaptive_divisor_quirk_gradient():
         assert np.abs(a).max() > 0
 
 
-def test_default_block_policy():
-    """Scene/phase/depth-aware tile defaults (PERF.md §5/§6 sweeps): small
-    scenes 8x512 fwd / 16x256 bwd; 64-sphere scenes keep 8x512 fwd but
-    take 64x512 bwd (64x256 past depth 3 for VMEM margin) and 64x256
-    fused.  Explicit ints always pass through."""
+@pytest.mark.parametrize("name", sorted(presets.PRESETS))
+def test_grad_layout_power_of_two_for_every_preset(name):
+    """Every preset's per-program partial-sum row (loss + sphere, material
+    and light fields) fits a power-of-two width — what Triton stores — with
+    no slot to spare beyond the padding."""
+    from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
+        grad_layout)
     from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
-        _resolve_blocks, compact_scene, default_blocks)
-    small = compact_scene(presets.full_reflective(size=32)[0])
-    big = compact_scene(presets.procedural_spheres(size=32)[0])
-    assert default_blocks(small, "fwd") == (8, 512)
-    assert default_blocks(small, "bwd") == (16, 256)
-    assert default_blocks(small, "fused") == (8, 512)
-    assert default_blocks(big, "fwd") == (8, 512)
-    assert default_blocks(big, "bwd", depth=3) == (64, 512)
-    assert default_blocks(big, "bwd", depth=5) == (64, 256)
-    assert default_blocks(big, "fused") == (64, 256)
-    assert _resolve_blocks(big, 32, 128, "bwd") == (32, 128)
-    assert _resolve_blocks(big, None, None, "bwd", 3) == (64, 512)
+        compact_scene)
+    scene = compact_scene(presets.PRESETS[name]()[0])
+    used, width = grad_layout(max(scene.num_spheres, 1),
+                              scene.num_materials, scene.num_lights)
+    assert used == (1 + 4 * max(scene.num_spheres, 1)
+                    + 9 * scene.num_materials + 3 * scene.num_lights)
+    assert width & (width - 1) == 0
+    assert width // 2 < used <= width

@@ -6,17 +6,14 @@ via the shared harness oracle/gradcheck.py (stable-interior-pixel
 selection, O(1)-scaled functional — see its docstring for the
 fixed-topology convention).  Candidates:
 
-  * the fully in-kernel fused Pallas adjoint on the chain scene
-    (kernels/adjoint_fused, two-phase residual path);
-  * the in-kernel bounce-TREE adjoint on a fractional-transparency scene
-    with TWO lights (recompute path — VERDICT r2 item 4's wider net);
+  * the in-kernel adjoint on the chain scene (recompute backward kernel);
+  * XLA autodiff of the core tree renderer on a fractional-transparency
+    scene with TWO lights (the route that serves tree scenes);
   * camera-eye gradients through the XLA replay vjp
     (kernels/adjoint.py::render_image_diff).
 
-These run in interpret mode (exact divides).  The SAME harness runs on the
-real TPU kernel with ``fast_recip`` on via scripts/grad_bar_tpu.py, whose
-artifact is committed under artifacts/ — the chip's actual arithmetic is
-held to the same 1e-4 bar there.
+These run the kernels in interpret mode.  ``chip_smoke.py`` runs the same
+harness on the compiled kernels on the GPU, held to the same 1e-4 bar.
 """
 import dataclasses
 
@@ -25,70 +22,41 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from ray_tracer_fragment_shader_tpu.core.renderer import render_image
 from ray_tracer_fragment_shader_tpu.diff.fit import FitParams
 from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
-    fit_grads_pallas, recompute_grads_pallas)
+    recompute_grads_pallas)
 from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
     compact_scene, render_forward_with_residuals)
 from ray_tracer_fragment_shader_tpu.ops.rays import Camera
 from ray_tracer_fragment_shader_tpu.oracle.gradcheck import (
-    fd_eye, make_functional, param_checks, stable_interior_pixels,
+    fd_eye, make_functional, run_grad_bar, stable_interior_pixels,
     stratified_pick, summarize)
 from ray_tracer_fragment_shader_tpu.scene import Material, SceneBuilder
 from ray_tracer_fragment_shader_tpu.scene import presets
 
 SIZE = 128
-BLOCKS = dict(block_h=8, block_w=128)
 BAR = 1e-4  # BASELINE.json: grad max-abs-err vs reference
 
 
-def _cotangent_plane(cfg, pix, w_rgb):
-    g = np.zeros((cfg.height, cfg.width, 3), np.float32)
-    for k, (j, i) in enumerate(pix):
-        g[j, i] = w_rgb[k] / len(pix)
-    return jnp.asarray(g)
-
-
-def _run_bar(scene, camcfg, cfg, grads_fn, n_each=16, min_sph=4,
-             min_pix=24):
-    """Shared flow: residual forward -> stable pixels -> candidate grads via
-    ``grads_fn(camera, g)`` -> FD checks -> summary dict."""
-    scene = compact_scene(scene)
-    cam = Camera.from_config(camcfg, cfg.width, cfg.height)
-    img, res = render_forward_with_residuals(scene, cam, cfg,
-                                             interpret=True, **BLOCKS)
-    pix = stable_interior_pixels(res, cfg, scene, camcfg)
-    assert len(pix) >= min_pix, f"only {len(pix)} stable interior pixels"
-    pix, n_sph = stratified_pick(pix, res, scene, n_each=n_each)
-    assert n_sph >= min_sph, f"only {n_sph} stable sphere pixels"
-
-    rng = np.random.RandomState(0)
-    w_rgb = rng.uniform(0.25, 1.0, size=(len(pix), 3))
-    g = _cotangent_plane(cfg, pix, w_rgb)
-    grads = grads_fn(cam, res, g)
-    grads = {k: np.asarray(v, np.float64) for k, v in grads.items()}
-
-    J = make_functional(scene, cfg, camcfg, pix, w_rgb)
-    checks = param_checks(J, scene, grads)
-    s = summarize(checks)
+def _check(s):
     # the bar is meaningful only if the gradients aren't all ~0
     assert s["grad_scale"] > 1e-3, "degenerate test: all-zero gradients"
     assert s["max_abs_err"] <= BAR, (
         f"max-abs-err {s['max_abs_err']:.3e} > {BAR} at {s['worst']} "
         f"(candidate {s['worst_candidate']:.6e}, fd {s['worst_fd']:.6e}); "
         f"|grad|_max={s['grad_scale']:.3e}")
-    return s
 
 
 def test_fused_adjoint_grad_max_abs_err_le_1e4_vs_f64_oracle_fd():
-    """Chain scene, two-phase fused adjoint (residuals from HBM)."""
+    """Chain scene, in-kernel adjoint (recompute backward kernel)."""
     scene, camcfg, cfg = presets.fit_target(size=SIZE)
 
-    def grads_fn(cam, res, g):
-        return fit_grads_pallas(compact_scene(scene), cam, cfg, res, g,
-                                interpret=True, **BLOCKS)
+    def grads_fn(cam, g):
+        return recompute_grads_pallas(compact_scene(scene), cam, cfg, g,
+                                      interpret=True)
 
-    _run_bar(scene, camcfg, cfg, grads_fn)
+    _check(run_grad_bar(scene, camcfg, cfg, grads_fn, interpret=True))
 
 
 def _tree_scene_two_lights():
@@ -108,20 +76,27 @@ def _tree_scene_two_lights():
 
 
 def test_tree_adjoint_grad_bar_two_lights():
-    """Fractional-transparency scene (bounce TREE), 2 lights: the in-kernel
-    tree adjoint (recompute path) vs f64-oracle FD, same 1e-4 bar.  The
+    """Fractional-transparency scene (bounce TREE), 2 lights: XLA autodiff
+    of the core tree renderer vs f64-oracle FD, same 1e-4 bar.  The
     oracle's trace_ray is the literal recursive rayTraceRay (both
     branches), so it is tree ground truth."""
-    scene = _tree_scene_two_lights()
+    scene = compact_scene(_tree_scene_two_lights())
     camcfg = presets._cam(64)
     cfg = dataclasses.replace(
         presets.fit_target(size=64)[2], width=64, height=64, max_depth=2)
 
-    def grads_fn(cam, res, g):
-        return recompute_grads_pallas(compact_scene(scene), cam, cfg, g,
-                                      interpret=True, **BLOCKS)
+    def grads_fn(cam, g):
+        params = FitParams.from_scene(scene)
+        _, vjp = jax.vjp(
+            lambda p: render_image(p.into_scene(scene), cam, cfg), params)
+        (gp,) = vjp(g)
+        return dict(sph_center=gp.sph_center, sph_radius=gp.sph_radius,
+                    light_pos=gp.light_pos, mat_ambient=gp.mat_ambient,
+                    mat_diffuse=gp.mat_diffuse,
+                    mat_specular=gp.mat_specular)
 
-    _run_bar(scene, camcfg, cfg, grads_fn, n_each=8, min_sph=2)
+    _check(run_grad_bar(scene, camcfg, cfg, grads_fn, interpret=True,
+                        n_each=8, min_sph=2))
 
 
 def test_camera_eye_grad_bar():
@@ -134,7 +109,7 @@ def test_camera_eye_grad_bar():
     scene = compact_scene(scene)
     cam = Camera.from_config(camcfg, cfg.width, cfg.height, dtype=jnp.float32)
     img, res = render_forward_with_residuals(scene, cam, cfg,
-                                             interpret=True, **BLOCKS)
+                                             interpret=True)
     pix = stable_interior_pixels(res, cfg, scene, camcfg)
     pix, _ = stratified_pick(pix, res, scene, n_each=8)
     rng = np.random.RandomState(1)
@@ -144,7 +119,7 @@ def test_camera_eye_grad_bar():
     w = jnp.asarray(w_rgb, jnp.float32)
 
     def img_J(camera):
-        img = render_image_diff(scene, camera, cfg)
+        img = render_image_diff(scene, camera, cfg, True)
         return jnp.sum(w * img[jj, ii]) / len(pix)
 
     g_cam = jax.grad(img_J)(cam)

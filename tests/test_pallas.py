@@ -1,4 +1,5 @@
-"""Pallas kernel parity vs the core renderer (interpreter mode on CPU)."""
+"""Pallas forward kernel (Triton route) parity vs the core renderer, with the
+kernel in the Pallas interpreter on the CPU."""
 import dataclasses
 
 import numpy as np
@@ -15,8 +16,8 @@ SIZE = 32
 def _compare(name, frac_budget=0.01, **kwargs):
     scene, cam, cfg = presets.PRESETS[name](size=SIZE, **kwargs)
     a = np.asarray(render_image(scene, cam, cfg))
-    b = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                       block_w=128))
+    b = np.asarray(render_image_pallas(scene, cam, cfg,
+                                       interpret=True))
     d = np.abs(a - b).max(-1)
     # budget for decision-boundary pixels (horizon-row checker parity etc.)
     assert (d > 1e-3).mean() <= frac_budget, (
@@ -41,8 +42,8 @@ def test_reference_demo_transmission_chain():
     cfg = dataclasses.replace(cfg, width=SIZE, height=SIZE, samples=1,
                               max_depth=3)
     a = np.asarray(render_image(scene, cam, cfg))
-    b = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                       block_w=128))
+    b = np.asarray(render_image_pallas(scene, cam, cfg,
+                                       interpret=True))
     d = np.abs(a - b).max(-1)
     # the demo's 1:1 pixel scale puts a whole image row on the board-plane
     # horizon where checker parity is decision-boundary noise
@@ -53,8 +54,8 @@ def test_nonsquare_padding():
     scene, cam, cfg = presets.single_sphere(size=SIZE)
     cfg = dataclasses.replace(cfg, width=48, height=24)
     a = np.asarray(render_image(scene, cam, cfg))
-    b = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                       block_w=128))
+    b = np.asarray(render_image_pallas(scene, cam, cfg,
+                                       interpret=True))
     assert b.shape == (24, 48, 3)
     assert np.abs(a - b).max() < 1e-3
 
@@ -63,8 +64,8 @@ def test_supersampling_matches_core():
     scene, cam, cfg = presets.single_sphere(size=16)
     cfg = dataclasses.replace(cfg, samples=4)
     a = np.asarray(render_image(scene, cam, cfg))
-    b = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                       block_w=128))
+    b = np.asarray(render_image_pallas(scene, cam, cfg,
+                                       interpret=True))
     # same PRNG keys and jitter distribution -> identical sample sets
     np.testing.assert_allclose(a, b, atol=1e-3)
 
@@ -87,68 +88,50 @@ def _fractional_scene():
     return scene
 
 
-def test_tree_kernel_fractional_transparency():
-    """Bounce-tree kernel == core tree renderer on a fractional-T scene."""
+def test_fractional_scene_renders_through_xla_tree():
+    """A fractional-T scene needs the bounce tree, which has no kernel: the
+    kernel entry point hands it to the XLA tree renderer, so the two
+    entry points agree exactly (and no interpret flag is needed)."""
     from ray_tracer_fragment_shader_tpu.config import RenderConfig
     from ray_tracer_fragment_shader_tpu.scene.presets import _cam
     scene = _fractional_scene()
     cfg = RenderConfig(width=SIZE, height=SIZE, max_depth=2, samples=1)
     cam = _cam(SIZE)
     a = np.asarray(render_image(scene, cam, cfg))  # auto-routes to tree mode
-    b = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                       block_w=128))
-    d = np.abs(a - b).max(-1)
-    assert (d > 1e-3).mean() <= 0.01, (
-        f"{(d > 1e-3).mean():.4f} mismatching, max {d.max():.3g}")
-    assert a.mean() == pytest.approx(b.mean(), rel=0.05)
+    b = np.asarray(render_image_pallas(scene, cam, cfg))
+    np.testing.assert_array_equal(a, b)
 
 
-def test_tree_kernel_matches_chain_on_chain_exact_scene():
-    """On a chain-exact scene the bounce tree degenerates to the chain: the
-    two kernels must agree."""
-    scene, cam, cfg = presets.full_reflective(size=SIZE)
-    chain = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                           block_w=128))
-    forced_tree = scene.replace(chain_exact=False)
-    tree = np.asarray(render_image_pallas(forced_tree, cam, cfg, block_h=8,
-                                          block_w=128))
-    # decision-boundary pixels (checker parity on the horizon row) may flip
-    # between the fori_loop chain and the unrolled tree; budget them like
-    # every other parity test here
-    d = np.abs(chain - tree).max(-1)
-    assert (d > 1e-3).mean() <= 0.01
-    assert chain.mean() == pytest.approx(tree.mean(), rel=0.05)
-
-
-def test_tree_residual_forward_matches_plain_tree():
-    """The tree kernel's residual-emitting variant renders the same image
-    and produces preorder-node residual planes (2^(depth+1)-1 of them)."""
+def test_residual_forward_matches_plain_forward():
+    """The residual-emitting forward renders the same image as the plain
+    kernel, with one residual plane per bounce level, and refuses scenes
+    that need the bounce tree."""
     from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
-        n_tree_nodes, render_forward_with_residuals)
-    from ray_tracer_fragment_shader_tpu.config import RenderConfig
-    from ray_tracer_fragment_shader_tpu.scene.presets import _cam
-    scene = _fractional_scene()
-    cfg = RenderConfig(width=16, height=16, max_depth=2, samples=1)
-    cam = _cam(16)
-    img, res = render_forward_with_residuals(scene, cam, cfg, block_h=8,
-                                             block_w=128)
-    plain = render_image_pallas(scene, cam, cfg, block_h=8, block_w=128)
-    np.testing.assert_allclose(np.asarray(img), np.asarray(plain), atol=1e-6)
-    assert res["bi"].shape[0] == n_tree_nodes(cfg.max_depth)
-    assert res["lit"].shape[:2] == (1, n_tree_nodes(cfg.max_depth))
+        render_forward_with_residuals)
+    from ray_tracer_fragment_shader_tpu.ops.rays import Camera
+    scene, camcfg, cfg = presets.three_spheres_ground(size=16)
+    cam = Camera.from_config(camcfg, 16, 16)
+    img, res = render_forward_with_residuals(scene, cam, cfg, interpret=True)
+    plain = render_image_pallas(scene, cam, cfg, interpret=True)
+    np.testing.assert_array_equal(np.asarray(img), np.asarray(plain))
+    assert res["bi"].shape == (cfg.max_depth + 1, 16, 16)
+    assert res["lit"].shape == (scene.num_lights, cfg.max_depth + 1, 16, 16)
+    with pytest.raises(ValueError, match="tree"):
+        render_forward_with_residuals(_fractional_scene(), cam, cfg,
+                                      interpret=True)
 
 
 def test_procedural_spheres_full_count_256():
     """BASELINE config 5 at its full primitive count (n=64 spheres, 2
     lights, depth 3) at 256^2 — pallas kernel vs core renderer (VERDICT r1
-    item 4's CPU coverage; the 4096^2 run happens on real TPU via
-    BENCH_PRESET=procedural_spheres, see PERF.md)."""
+    item 4's CPU coverage; the card runs it with
+    BENCH_PRESET=procedural_spheres)."""
     scene, camcfg, cfg = presets.procedural_spheres(n=64, size=256, depth=3)
     from ray_tracer_fragment_shader_tpu.ops.rays import Camera
     cam = Camera.from_config(camcfg, 256, 256)
     a = np.asarray(render_image(scene, cam, cfg))
-    b = np.asarray(render_image_pallas(scene, cam, cfg, block_h=8,
-                                       block_w=128))
+    b = np.asarray(render_image_pallas(scene, cam, cfg,
+                                       interpret=True))
     d = np.abs(a - b).max(-1)
     assert (d > 1e-3).mean() <= 0.01, f"{(d > 1e-3).mean():.4f} mismatching"
     assert a.mean() == pytest.approx(b.mean(), rel=0.02)

@@ -17,7 +17,7 @@ from ray_tracer_fragment_shader_tpu.ops.rays import Camera
 from ray_tracer_fragment_shader_tpu.scene import presets
 
 SIZE = 32
-BLOCKS = dict(block_h=8, block_w=128)
+BLOCKS = dict(interpret=True)
 
 
 def _rel(a, b):

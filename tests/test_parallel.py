@@ -1,5 +1,5 @@
 """Sharded rendering and training on the 8-virtual-device CPU mesh —
-the same Mesh/shard_map code paths used on TPU pods (SURVEY.md section 4,
+the same Mesh/shard_map code paths used on several GPUs (SURVEY.md section 4,
 item 3)."""
 import dataclasses
 import os
@@ -171,5 +171,6 @@ def test_multihost_init_two_processes(tmp_path):
     target = render_image(scene, cam, cfg)
     params = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 0.5)
-    loss_single, _ = fit_value_and_grad(params, scene, cam, cfg, target)
+    loss_single, _ = fit_value_and_grad(params, scene, cam, cfg, target,
+                                        interpret=True)
     assert losses[0] == pytest.approx(float(loss_single), rel=1e-5)

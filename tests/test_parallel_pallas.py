@@ -1,7 +1,7 @@
-"""The FAST multi-chip path (VERDICT r1 item 1): fused Pallas forward +
-fully in-kernel adjoint per row-band shard, FitParams grads psum'd over the
+"""The multi-device kernel path: per row-band shard, the two-phase Pallas
+kernels (forward + in-kernel adjoint), FitParams grads psum'd over the
 mesh.  Runs on the 8-virtual-device CPU mesh with the kernels in interpret
-mode — the same shard_map/Mesh code that runs on a TPU pod."""
+mode — the same shard_map/Mesh code that runs on several GPUs."""
 import dataclasses
 
 import jax
@@ -11,7 +11,7 @@ import optax
 import pytest
 
 from ray_tracer_fragment_shader_tpu.diff.fit import (
-    FitParams, make_sharded_fit_step_pallas)
+    FitParams, make_sharded_fit_step, make_sharded_fit_step_pallas)
 from ray_tracer_fragment_shader_tpu.kernels.adjoint_fused import (
     fit_value_and_grad)
 from ray_tracer_fragment_shader_tpu.kernels.render_pallas import (
@@ -22,7 +22,7 @@ from ray_tracer_fragment_shader_tpu.parallel.shard import render_image_sharded
 from ray_tracer_fragment_shader_tpu.scene import presets
 
 SIZE = 32
-BLOCKS = dict(block_h=8, block_w=128)
+BLOCKS = dict(interpret=True)
 
 
 def test_sharded_pallas_forward_matches_single_device(eight_devices):
@@ -101,9 +101,10 @@ def test_sharded_pallas_fit_descends(eight_devices):
 
 
 def test_sharded_pallas_fit_step_tree_scene(eight_devices):
-    """The sharded fast path on a fractional-transparency scene: each band
-    runs the fused TREE fwd+bwd kernel (in-kernel tree adjoint) and the
-    psum'd step matches the single-device fused step."""
+    """Fractional-transparency scenes need the bounce tree, which has no
+    kernel: the sharded kernel step refuses them, and the sharded XLA step
+    (``make_sharded_fit_step``, core renderer under autodiff, psum'd
+    grads) on the 8-device mesh matches the same step on one device."""
     from ray_tracer_fragment_shader_tpu.scene import Material, SceneBuilder
 
     glass = Material(ambient=(0.02, 0.02, 0.02), diffuse=(0.1, 0.1, 0.2),
@@ -116,23 +117,22 @@ def test_sharded_pallas_fit_step_tree_scene(eight_devices):
     camcfg = presets._cam(SIZE)
     cfg = dataclasses.replace(presets.fit_target(size=SIZE)[2], max_depth=2)
     cam = Camera.from_config(camcfg, cfg.width, cfg.height)
-    target = render_image_pallas(scene, cam, cfg, **BLOCKS)
+    target = render_image_pallas(scene, cam, cfg)
+    tgt_flat = jnp.reshape(target, (-1, 3))
 
     params0 = FitParams.from_scene(scene).replace(
         sph_center=scene.sph_center + 1.0)
     opt = optax.adam(0.05)
+    with pytest.raises(ValueError, match="make_sharded_fit_step"):
+        make_sharded_fit_step_pallas(scene, cam, cfg, target, opt,
+                                     make_mesh(eight_devices), **BLOCKS)
 
-    loss_s, grads_s = fit_value_and_grad(params0, scene, cam, cfg, target,
-                                         **BLOCKS)
-    opt_state = opt.init(params0)
-    updates, _ = opt.update(grads_s, opt_state, params0)
-    params_s = optax.apply_updates(params0, updates)
-
-    mesh = make_mesh(eight_devices)
-    step, tgt = make_sharded_fit_step_pallas(scene, cam, cfg, target, opt,
-                                             mesh, **BLOCKS)
-    opt_state = opt.init(params0)
-    params_m, _, loss_m = step(params0, opt_state, tgt)
+    results = []
+    for devices in (eight_devices[:1], eight_devices):
+        step, (ii, jj) = make_sharded_fit_step(scene, cam, cfg, tgt_flat,
+                                               opt, make_mesh(devices))
+        results.append(step(params0, opt.init(params0), ii, jj, tgt_flat))
+    (params_s, _, loss_s), (params_m, _, loss_m) = results
 
     assert float(loss_m) == pytest.approx(float(loss_s), rel=1e-5)
     for leaf_s, leaf_m in zip(jax.tree_util.tree_leaves(params_s),
